@@ -5,6 +5,10 @@
 // (n+1,), computes
 //     out[r] = COMBINE_j COMPUTE(vals[nbr[r, j]], wgt[r, j])
 // where a sentinel slot (nbr == n) contributes the combine identity.
+// With the deletion overlay (Pallas `_ell_kernel_overlay`, the `dead=`
+// argument) a slot whose int8 mask dead[r, j] is non-zero contributes the
+// identity too: the same value, bit for bit, as running without the mask on
+// a copy whose dead slots hold the sentinel n.
 //
 // Bound on the H100: bytes. Each slot reads a 4-byte neighbour id (and a
 // 4-byte weight for the ops that read it) once, gathers one 4-byte value and
@@ -24,6 +28,7 @@
 // with offsets G/2 .. 1. With explicit __fadd_rn/__fmul_rn (no FMA
 // contraction) the result is bit-equal to the PyTorch version for sums too.
 // No R % 8 tiling: a block covers 256/G rows and the ragged end is masked.
+// The overlay is a template flag: the kernel without it reads no mask.
 
 #include <cuda_runtime.h>
 #include <cfloat>
@@ -59,9 +64,11 @@ __device__ __forceinline__ float pair(float a, float b) {
 }
 
 // G lanes per row, S slots per lane; G * S = next power of two >= W.
-template <int C, int K, int G, int S>
+// DEAD: read the (R, W) int8 deletion mask.
+template <int C, int K, int G, int S, bool DEAD>
 __global__ void __launch_bounds__(THREADS)
 ell_kernel(const int* __restrict__ nbr, const float* __restrict__ wgt,
+           const signed char* __restrict__ dead,
            const float* __restrict__ vals, float* __restrict__ out,
            int R, int W, int n) {
   const int lane = threadIdx.x % G;
@@ -78,7 +85,7 @@ ell_kernel(const int* __restrict__ nbr, const float* __restrict__ wgt,
       const int nb = nbr[o];
       const float x = __ldg(&vals[nb < n ? nb : n]);
       const float u = compute<C>(x, (C == ADD_W || C == MUL_W) ? wgt[o] : 0.0f);
-      v = (nb == n) ? ident<K>() : u;
+      v = (nb == n || (DEAD && dead[o] != 0)) ? ident<K>() : u;
     }
     a[k] = v;
   }
@@ -94,62 +101,75 @@ ell_kernel(const int* __restrict__ nbr, const float* __restrict__ wgt,
   if (live && lane == 0) out[row] = r;
 }
 
-template <int C, int K, int G, int S>
-cudaError_t go(const int* nbr, const float* wgt, const float* vals, float* out,
-               int R, int W, int n, cudaStream_t stream) {
+struct Args {
+  const int* nbr;
+  const float* wgt;
+  const signed char* dead;  // nullptr: no overlay
+  const float* vals;
+  float* out;
+  int R, W, n;
+  cudaStream_t stream;
+};
+
+template <int C, int K, int G, int S, bool DEAD>
+cudaError_t go(const Args& a) {
   const int rows_per_block = THREADS / G;
-  const int grid = (R + rows_per_block - 1) / rows_per_block;
-  ell_kernel<C, K, G, S><<<grid, THREADS, 0, stream>>>(nbr, wgt, vals, out, R,
-                                                       W, n);
+  const int grid = (a.R + rows_per_block - 1) / rows_per_block;
+  ell_kernel<C, K, G, S, DEAD><<<grid, THREADS, 0, a.stream>>>(
+      a.nbr, a.wgt, a.dead, a.vals, a.out, a.R, a.W, a.n);
   return cudaGetLastError();
 }
 
+template <int C, int K, int G, int S>
+cudaError_t by_overlay(const Args& a) {
+  return a.dead ? go<C, K, G, S, true>(a) : go<C, K, G, S, false>(a);
+}
+
 template <int C, int K>
-cudaError_t by_width(const int* nbr, const float* wgt, const float* vals,
-                     float* out, int R, int W, int n, cudaStream_t s) {
+cudaError_t by_width(const Args& a) {
   int p = 1;
-  while (p < W) p <<= 1;
+  while (p < a.W) p <<= 1;
   switch (p) {
-    case 1: return go<C, K, 1, 1>(nbr, wgt, vals, out, R, W, n, s);
-    case 2: return go<C, K, 1, 2>(nbr, wgt, vals, out, R, W, n, s);
-    case 4: return go<C, K, 1, 4>(nbr, wgt, vals, out, R, W, n, s);
-    case 8: return go<C, K, 8, 1>(nbr, wgt, vals, out, R, W, n, s);
-    case 16: return go<C, K, 16, 1>(nbr, wgt, vals, out, R, W, n, s);
-    case 32: return go<C, K, 32, 1>(nbr, wgt, vals, out, R, W, n, s);
-    case 64: return go<C, K, 32, 2>(nbr, wgt, vals, out, R, W, n, s);
-    case 128: return go<C, K, 32, 4>(nbr, wgt, vals, out, R, W, n, s);
-    case 256: return go<C, K, 32, 8>(nbr, wgt, vals, out, R, W, n, s);
+    case 1: return by_overlay<C, K, 1, 1>(a);
+    case 2: return by_overlay<C, K, 1, 2>(a);
+    case 4: return by_overlay<C, K, 1, 4>(a);
+    case 8: return by_overlay<C, K, 8, 1>(a);
+    case 16: return by_overlay<C, K, 16, 1>(a);
+    case 32: return by_overlay<C, K, 32, 1>(a);
+    case 64: return by_overlay<C, K, 32, 2>(a);
+    case 128: return by_overlay<C, K, 32, 4>(a);
+    case 256: return by_overlay<C, K, 32, 8>(a);
     default: return cudaErrorInvalidValue;
   }
 }
 
 template <int C>
-cudaError_t by_combine(int combine, const int* nbr, const float* wgt,
-                       const float* vals, float* out, int R, int W, int n,
-                       cudaStream_t s) {
+cudaError_t by_combine(int combine, const Args& a) {
   switch (combine) {
-    case MIN: return by_width<C, MIN>(nbr, wgt, vals, out, R, W, n, s);
-    case MAX: return by_width<C, MAX>(nbr, wgt, vals, out, R, W, n, s);
-    case SUM: return by_width<C, SUM>(nbr, wgt, vals, out, R, W, n, s);
+    case MIN: return by_width<C, MIN>(a);
+    case MAX: return by_width<C, MAX>(a);
+    case SUM: return by_width<C, SUM>(a);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
+// `dead` is the (R, W) int8 deletion overlay, or null for none.
 // Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int ell_combine_launch(const int* nbr, const float* wgt,
-                                  const float* vals, float* out, int R, int W,
-                                  int n, int compute_op, int combine_op,
+                                  const signed char* dead, const float* vals,
+                                  float* out, int R, int W, int n,
+                                  int compute_op, int combine_op,
                                   void* stream) {
   if (R <= 0) return 0;
   if (W < 1 || W > 256) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
+  const Args a{nbr, wgt, dead, vals, out, R, W, n, (cudaStream_t)stream};
   switch (compute_op) {
-    case HOP: return (int)by_combine<HOP>(combine_op, nbr, wgt, vals, out, R, W, n, s);
-    case ADD_W: return (int)by_combine<ADD_W>(combine_op, nbr, wgt, vals, out, R, W, n, s);
-    case COPY: return (int)by_combine<COPY>(combine_op, nbr, wgt, vals, out, R, W, n, s);
-    case MUL_W: return (int)by_combine<MUL_W>(combine_op, nbr, wgt, vals, out, R, W, n, s);
+    case HOP: return (int)by_combine<HOP>(combine_op, a);
+    case ADD_W: return (int)by_combine<ADD_W>(combine_op, a);
+    case COPY: return (int)by_combine<COPY>(combine_op, a);
+    case MUL_W: return (int)by_combine<MUL_W>(combine_op, a);
     default: return (int)cudaErrorInvalidValue;
   }
 }

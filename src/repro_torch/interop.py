@@ -6,6 +6,7 @@ tests to run both packages on one graph, one packing and one initial state.
 
     g = graph_from_numpy(csr_arrays(jax_graph.out), csr_arrays(jax_graph.inc),
                          device="cuda")
+    p = attn_params_from_numpy({k: np.asarray(v[0]) for k, v in layers.items()})
 """
 
 from __future__ import annotations
@@ -60,5 +61,25 @@ def pack_from_numpy(slices: Sequence[Mapping], n_nodes: int,
 
 def meta_from_numpy(meta: Mapping, device="cuda") -> dict:
     """A metadata dict of numpy arrays as tensors (dtypes kept)."""
+    return {k: tensor_from_numpy(v, device) for k, v in meta.items()}
+
+
+def tensor_from_numpy(arr, device="cuda") -> torch.Tensor:
+    """A numpy array as a tensor of the same dtype, JAX's bfloat16 included:
+    `np.asarray` of a bf16 JAX array is an `ml_dtypes.bfloat16` array, which
+    `torch.from_numpy` refuses, so its 16 bits go over as int16."""
     dev = resolve_device(device)
-    return {k: torch.from_numpy(np.array(v)).to(dev) for k, v in meta.items()}
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        bits = torch.from_numpy(np.array(arr).view(np.int16))
+        return bits.view(torch.bfloat16).to(dev)
+    return torch.from_numpy(np.array(arr)).to(dev)
+
+
+ATTN_FIELDS = ("wq", "wk", "wv", "wo", "attn_norm")
+
+
+def attn_params_from_numpy(layer: Mapping, device="cuda") -> dict:
+    """One layer's attention weights (`wq`, `wk`, `wv`, `wo`, `attn_norm`,
+    numpy, dtypes kept) as the dict `nn.layers.gqa_attention` takes."""
+    return {k: tensor_from_numpy(layer[k], device) for k in ATTN_FIELDS}

@@ -3,7 +3,8 @@
 Each `csrc/<name>.cu` is compiled by `nvcc` for Hopper (`sm_90a`) into a
 shared library with a plain C interface under `<checkout>/build/kernels/`,
 then loaded with `ctypes`. The library's file name carries a hash of its
-source, so an edited kernel is rebuilt and a stale one is never loaded.
+source and of the shared headers (`csrc/*.cuh`), so an edited kernel or
+header is rebuilt and a stale library is never loaded.
 `build_all()` starts one `nvcc` per source, all together.
 
 Nothing here runs at import time: the CPU tests import every module, and the
@@ -23,7 +24,13 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 #: <checkout>/build/kernels (the checkout root holds src/repro_torch/)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("ell_combine", "frontier_pack", "segment_reduce")
+#: each kernel and the source that holds it (the deletion overlay is a
+#: template flag of `ell_combine.cu`, counted apart)
+KERNELS = {"ell_combine": "ell_combine", "ell_combine_overlay": "ell_combine",
+           "frontier_pack": "frontier_pack", "segment_reduce": "segment_reduce",
+           "ell_spmm": "ell_spmm", "embedding_bag": "embedding_bag",
+           "flash_attention": "flash_attention"}
+SOURCES = tuple(dict.fromkeys(KERNELS.values()))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -33,7 +40,7 @@ _lock = threading.Lock()
 
 #: kernel launches per wrapper: each CUDA wrapper adds one where it launches
 #: its kernel, and nowhere else (read by chip_smoke.py via ops.launch_counts)
-LAUNCHES: dict[str, int] = {name: 0 for name in SOURCES}
+LAUNCHES: dict[str, int] = {name: 0 for name in KERNELS}
 
 
 def _nvcc() -> str:
@@ -47,8 +54,10 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):     # the headers a source may include
+        digest.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def _start(name: str):

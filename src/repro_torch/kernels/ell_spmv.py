@@ -1,11 +1,17 @@
-"""ELL gather -> Compute -> Combine: the ACC pull hot path.
+"""ELL gather -> Compute -> Combine (the ACC pull hot path), and ELL SpMM.
 
-Port of `repro.kernels.ell_spmv.ell_combine` (the Pallas `_ell_kernel`).
-For one ELL slice (nbr, wgt of shape (R, W)) and metadata vals (n+1,):
+Port of `repro.kernels.ell_spmv`: `ell_combine` (the Pallas `_ell_kernel`,
+and `_ell_kernel_overlay` when a deletion mask is given) and `ell_spmm`
+(`_spmm_kernel`). For one ELL slice (nbr, wgt of shape (R, W)) and
+metadata vals (n+1,):
 
     partial[r] = COMBINE_j COMPUTE(vals[nbr[r, j]], wgt[r, j])
 
-with each sentinel slot (nbr == n) contributing the combine identity.
+with each sentinel slot (nbr == n) contributing the combine identity, and
+with the overlay each slot whose `dead` mask is set as well. For features
+F (n+1, D):
+
+    out[r, :] = SUM_j w'[r, j] * F[nbr[r, j], :],   w' = 0 on sentinel slots
 
 The CUDA kernel is `csrc/ell_combine.cu`; its header says what bounds it on
 the H100 and how its design answers that. Where the Pallas kernel took any
@@ -14,11 +20,17 @@ four the catalog uses (`COMPUTE_OPS`); an `ACCProgram` declares its op in
 `kernel_compute`. The row reduction is the power-of-two halving tree of
 `halving_tree`, in the kernel and in the plain version alike, so the two are
 bit-equal for sums as well as for min and max.
+
+`ell_spmm`'s kernel is `csrc/ell_spmm.cu`: f32 accumulation over the slots
+in order, output in F's dtype (float32 or bfloat16). Its plain version
+works in row chunks, so that the gathered (rows, W, D) block stays small at
+full graph size.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import numpy as np
 import torch
@@ -80,24 +92,45 @@ def halving_tree(vals: torch.Tensor, axis: int, combine: str) -> torch.Tensor:
 
 
 def ell_combine_plain(nbr: torch.Tensor, wgt: torch.Tensor, vals: torch.Tensor,
-                      compute: str, combine: str) -> torch.Tensor:
-    """Plain PyTorch version: gather, Compute, identity on sentinel slots,
-    halving-tree row reduce."""
+                      compute: str, combine: str,
+                      dead: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain PyTorch version: gather, Compute, identity on sentinel (and
+    dead) slots, halving-tree row reduce."""
     n = vals.shape[0] - 1
     v = vals[torch.clamp(nbr, max=n)]
     upd = compute_op(compute, v, wgt)
-    upd = torch.where(nbr == n, _IDENT[combine], upd)
+    drop = nbr == n
+    if dead is not None:
+        drop = drop | (dead != 0)
+    upd = torch.where(drop, _IDENT[combine], upd)
     return halving_tree(upd, 1, combine)
 
 
+def neutralize(nbr: torch.Tensor, dead: torch.Tensor, n: int) -> torch.Tensor:
+    """A copy of `nbr` whose dead slots hold the sentinel `n`: without a mask,
+    the kernels on it give what the overlay gives on `nbr` (the contract of
+    `repro.kernels.ops.ell_combine`'s fold)."""
+    return torch.where(dead != 0, n, nbr)
+
+
+def _dead_int8(dead: torch.Tensor) -> torch.Tensor:
+    """The overlay mask as the kernel's int8 (a bool mask is viewed, not
+    copied)."""
+    if dead.dtype not in (torch.bool, torch.int8, torch.uint8):
+        raise TypeError(f"dead has dtype {dead.dtype}, expected bool or int8")
+    return dead.view(torch.int8)
+
+
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int, ctypes.c_void_p)
+             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
 
 
 def ell_combine_cuda(nbr: torch.Tensor, wgt: torch.Tensor, vals: torch.Tensor,
-                     compute: str, combine: str) -> torch.Tensor:
-    """Launch `csrc/ell_combine.cu` on PyTorch's current stream."""
+                     compute: str, combine: str,
+                     dead: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch `csrc/ell_combine.cu` on PyTorch's current stream; with `dead`
+    (bool or int8, (R, W)) the overlay variant, counted apart."""
     dev = vals.device
     if compute not in COMPUTE_OPS or combine not in COMBINE_OPS:
         raise ValueError(f"unsupported ops {compute!r}/{combine!r}")
@@ -109,11 +142,81 @@ def ell_combine_cuda(nbr: torch.Tensor, wgt: torch.Tensor, vals: torch.Tensor,
         raise ValueError(f"wgt {tuple(wgt.shape)} != nbr {tuple(nbr.shape)}")
     if not 1 <= w <= MAX_WIDTH:
         raise ValueError(f"slice width {w} outside [1, {MAX_WIDTH}]")
+    p_dead = None
+    if dead is not None:
+        if dead.shape != nbr.shape:
+            raise ValueError(f"dead {tuple(dead.shape)} != nbr {tuple(nbr.shape)}")
+        dead = _dead_int8(dead)
+        p_dead = _build.require(dead, "dead", torch.int8, 2, dev)
     out = torch.empty((r,), dtype=torch.float32, device=dev)
     fn = _build.entry("ell_combine", "ell_combine_launch", _ARGTYPES)
     with torch.cuda.device(dev):
-        err = fn(p_nbr, p_wgt, p_vals, out.data_ptr(), r, w, vals.shape[0] - 1,
-                 COMPUTE_OPS[compute], COMBINE_OPS[combine], _build.stream_of(dev))
+        err = fn(p_nbr, p_wgt, p_dead, p_vals, out.data_ptr(), r, w,
+                 vals.shape[0] - 1, COMPUTE_OPS[compute], COMBINE_OPS[combine],
+                 _build.stream_of(dev))
     _build.check(err, "ell_combine")
-    _build.LAUNCHES["ell_combine"] += 1
+    _build.LAUNCHES["ell_combine" if dead is None else "ell_combine_overlay"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# ELL SpMM: out[r] = sum_j w'[r, j] * F[nbr[r, j]]
+# ---------------------------------------------------------------------------
+
+#: feature widths the SpMM kernel takes (lanes over D, at most 8 per lane)
+MAX_FEATURES = 256
+SPMM_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: gathered elements per chunk of the plain version (2^24 floats = 64 MiB)
+_PLAIN_CHUNK = 1 << 24
+
+
+def ell_spmm_plain(nbr: torch.Tensor, wgt: torch.Tensor, feats: torch.Tensor
+                   ) -> torch.Tensor:
+    """Plain PyTorch version: weights zeroed on sentinel slots, the weighted
+    row sum as a batched (1, W) x (W, D) product in float32, cast to F's
+    dtype; in row chunks of at most 2^24 gathered elements."""
+    n = feats.shape[0] - 1
+    r, w = nbr.shape
+    d = feats.shape[1]
+    out = torch.empty((r, d), dtype=feats.dtype, device=feats.device)
+    step = max(1, _PLAIN_CHUNK // max(w * d, 1))
+    for lo in range(0, r, step):
+        nb = nbr[lo:lo + step]
+        ww = torch.where(nb == n, 0.0, wgt[lo:lo + step].float())
+        f = feats[torch.clamp(nb, max=n).long()].float()          # (c, W, D)
+        out[lo:lo + step] = torch.bmm(ww[:, None, :], f)[:, 0, :].to(feats.dtype)
+    return out
+
+
+_SPMM_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                  ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                  ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
+
+
+def ell_spmm_cuda(nbr: torch.Tensor, wgt: torch.Tensor, feats: torch.Tensor
+                  ) -> torch.Tensor:
+    """Launch `csrc/ell_spmm.cu`: nbr int32 (R, W), wgt float32 (R, W),
+    feats float32 or bfloat16 (n+1, D) with a finite row n -> (R, D) in
+    feats' dtype."""
+    dev = feats.device
+    if feats.dtype not in SPMM_DTYPES:
+        raise TypeError(f"feats has dtype {feats.dtype}, expected float32 or bfloat16")
+    p_nbr = _build.require(nbr, "nbr", torch.int32, 2, dev)
+    p_wgt = _build.require(wgt, "wgt", torch.float32, 2, dev)
+    p_f = _build.require(feats, "feats", feats.dtype, 2, dev)
+    r, w = nbr.shape
+    npad, d = feats.shape
+    if wgt.shape != nbr.shape:
+        raise ValueError(f"wgt {tuple(wgt.shape)} != nbr {tuple(nbr.shape)}")
+    if not 1 <= w <= MAX_WIDTH:
+        raise ValueError(f"slice width {w} outside [1, {MAX_WIDTH}]")
+    if not 1 <= d <= MAX_FEATURES:
+        raise ValueError(f"feature width {d} outside [1, {MAX_FEATURES}]")
+    out = torch.empty((r, d), dtype=feats.dtype, device=dev)
+    fn = _build.entry("ell_spmm", "ell_spmm_launch", _SPMM_ARGTYPES)
+    with torch.cuda.device(dev):
+        err = fn(p_nbr, p_wgt, p_f, out.data_ptr(), r, w, d, npad - 1,
+                 SPMM_DTYPES[feats.dtype], _build.stream_of(dev))
+    _build.check(err, "ell_spmm")
+    _build.LAUNCHES["ell_spmm"] += 1
     return out

@@ -18,9 +18,12 @@ from repro_torch.core import engine as E
 from repro_torch.graph import generators as G
 from repro_torch.graph import pack_ell
 from repro_torch.kernels import ell_spmv as tell
+from repro_torch.kernels import embedding_bag as tbag
+from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import frontier_pack as tfp
 from repro_torch.kernels import ops
 from repro_torch.kernels import segment_reduce as tsr
+from repro_torch.nn import layers as TL
 
 pytestmark = pytest.mark.cuda
 
@@ -94,3 +97,90 @@ def test_kernel_pull_bit_equal_to_torch_pull(cuda, name):
         assert torch.equal(_bits(mk[k]), _bits(mt[k])), k
     for k in sk:
         assert torch.equal(sk[k], st[k]), k
+
+
+@pytest.mark.parametrize("r,w,n", [(8, 4, 50), (37, 32, 100), (29, 256, 700), (9, 3, 40)])
+def test_overlay_bit_equal_to_plain_and_neutralized(cuda, r, w, n):
+    rng = np.random.default_rng(r + w)
+    nbr = torch.from_numpy(rng.integers(0, n + 1, (r, w)).astype(np.int32)).to(cuda)
+    wgt = torch.from_numpy(rng.random((r, w)).astype(np.float32)).to(cuda)
+    vals = torch.from_numpy(rng.random(n + 1).astype(np.float32)).to(cuda)
+    dead = torch.from_numpy(rng.random((r, w)) < 0.3).to(cuda)
+    neutral = tell.neutralize(nbr, dead, n)
+    for op in tell.COMPUTE_OPS:
+        for comb in tell.COMBINE_OPS:
+            a = tell.ell_combine_cuda(nbr, wgt, vals, op, comb, dead)
+            b = tell.ell_combine_plain(nbr, wgt, vals, op, comb, dead)
+            c = tell.ell_combine_cuda(neutral, wgt, vals, op, comb)
+            assert torch.equal(_bits(a), _bits(b)), (op, comb)
+            assert torch.equal(_bits(a), _bits(c)), (op, comb)
+
+
+@pytest.mark.parametrize("r,w,n,d", [(13, 1, 50, 8), (40, 3, 90, 10), (64, 32, 300, 64),
+                                     (29, 256, 700, 70), (8, 16, 40, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ell_spmm_matches_plain(cuda, r, w, n, d, dtype):
+    rng = np.random.default_rng(r * d)
+    nbr = torch.from_numpy(rng.integers(0, n + 1, (r, w)).astype(np.int32)).to(cuda)
+    wgt = torch.from_numpy(rng.random((r, w)).astype(np.float32)).to(cuda)
+    f = rng.random((n + 1, d)).astype(np.float32)
+    f[-1] = 0.0
+    feats = torch.from_numpy(f).to(cuda).to(dtype)
+    a = tell.ell_spmm_cuda(nbr, wgt, feats)
+    b = tell.ell_spmm_plain(nbr, wgt, feats)
+    assert a.dtype == dtype
+    if dtype == torch.float32:
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    else:       # both round a float32 sum; the sums differ in order only
+        torch.testing.assert_close(a.float(), b.float(), rtol=1.6e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("v,d,b,k", [(1000, 10, 100, 39), (50, 64, 33, 4), (70, 70, 5, 1),
+                                     (300, 3, 17, 200)])
+@pytest.mark.parametrize("mode", ["sum", "mean", "max"])
+def test_embedding_bag_matches_plain(cuda, v, d, b, k, mode):
+    rng = np.random.default_rng(v + k)
+    table = torch.from_numpy(rng.standard_normal((v, d)).astype(np.float32)).to(cuda)
+    idx = torch.from_numpy(rng.integers(0, v, (b, k)).astype(np.int32)).to(cuda)
+    a = tbag.embedding_bag_cuda(table, idx, mode)
+    p = tbag.embedding_bag_plain(table, idx, mode)
+    if mode == "max":
+        assert torch.equal(a, p)
+    else:
+        torch.testing.assert_close(a, p, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d", [(1, 2, 2, 32, 32, 16), (2, 4, 2, 64, 64, 32),
+                                               (1, 8, 1, 100, 100, 64), (2, 4, 2, 16, 80, 32),
+                                               (1, 4, 4, 70, 130, 128), (1, 2, 1, 1, 37, 24),
+                                               (1, 32, 8, 1024, 1024, 128)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_matches_plain(cuda, b, hq, hkv, sq, skv, d, causal, dtype):
+    rng = np.random.default_rng(sq * d)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(cuda).to(dtype)
+               for s in ((b, hq, sq, d), (b, hkv, skv, d), (b, hkv, skv, d)))
+    a = tfa.flash_attention_cuda(q, k, v, causal)
+    p = tfa.attention_plain(q, k, v, causal)
+    assert a.dtype == dtype and a.shape == q.shape
+    tol = 2e-4 if dtype == torch.float32 else 5e-2
+    torch.testing.assert_close(a.float(), p.float(), rtol=tol, atol=tol)
+    if dtype == torch.bfloat16:     # long rows average many values: hold the norm too
+        af, pf = a.float(), p.float()
+        assert float((af - pf).norm() / pf.norm()) <= tfa.BF16_REL_ERR
+
+
+def test_gqa_attention_flash_launches_the_kernel(cuda):
+    torch.manual_seed(0)
+    d, h, hkv, dh = 256, 8, 2, 32
+    p = {"wq": torch.randn(d, h * dh, device=cuda) / 16,
+         "wk": torch.randn(d, hkv * dh, device=cuda) / 16,
+         "wv": torch.randn(d, hkv * dh, device=cuda) / 16,
+         "wo": torch.randn(h * dh, d, device=cuda) / 16}
+    x = torch.randn(2, 96, d, device=cuda)
+    pos = torch.arange(96, device=cuda).expand(2, 96)
+    ops.reset_launches()
+    a, _ = TL.gqa_attention(x, p, n_heads=h, n_kv=hkv, positions=pos, use_flash=True)
+    assert ops.launch_counts()["flash_attention"] == 1
+    b, _ = TL.gqa_attention(x, p, n_heads=h, n_kv=hkv, positions=pos, use_flash=False)
+    torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-4)

@@ -38,6 +38,8 @@ def test_package_imports_without_jax():
         "from repro_torch.core import algorithms, engine, frontier, acc\n"
         "from repro_torch.graph import generators, packing, csr\n"
         "from repro_torch.kernels import ops, ell_spmv, frontier_pack, segment_reduce\n"
+        "from repro_torch.kernels import embedding_bag, flash_attention\n"
+        "from repro_torch.nn import layers, chunked_attn\n"
         "g = generators.rmat(6, 4, seed=1, device='cpu')\n"
         "p = packing.pack_ell(g.inc)\n"
         "m, st = engine.run(algorithms.bfs(0), g, p,\n"

@@ -14,7 +14,10 @@ from repro.kernels import frontier_pack as jfp
 from repro.kernels import ops as jops
 from repro.kernels import ref
 from repro.kernels import segment_reduce as jsr
+from repro_torch.kernels import _build
 from repro_torch.kernels import ell_spmv as tell
+from repro_torch.kernels import embedding_bag as tbag
+from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import frontier_pack as tfp
 from repro_torch.kernels import ops
 from repro_torch.kernels import segment_reduce as tsr
@@ -119,8 +122,12 @@ def test_cpu_tensors_take_the_plain_version_uncounted():
                     "hop", "min")
     ops.frontier_pack(torch.ones(10, dtype=torch.bool), 10)
     ops.segment_reduce(torch.ones(3), torch.zeros(3, dtype=torch.int32), 2)
-    assert ops.launch_counts() == {"ell_combine": 0, "frontier_pack": 0,
-                                   "segment_reduce": 0}
+    ops.ell_combine(torch.from_numpy(nbr), torch.from_numpy(wgt), torch.from_numpy(vals),
+                    "hop", "min", dead=torch.ones(nbr.shape, dtype=torch.bool))
+    ops.ell_spmm(torch.from_numpy(nbr), torch.from_numpy(wgt), torch.zeros(51, 3))
+    ops.embedding_bag(torch.ones(5, 3), torch.zeros(2, 2, dtype=torch.int32))
+    ops.attention(torch.ones(1, 2, 4, 8), torch.ones(1, 1, 4, 8), torch.ones(1, 1, 4, 8))
+    assert ops.launch_counts() == {k: 0 for k in _build.KERNELS}
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -133,3 +140,28 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         tfp.frontier_pack_cuda(torch.ones(4, dtype=torch.bool), 4)
     with pytest.raises(ValueError, match="CUDA"):
         tsr.segment_reduce_cuda(torch.ones(3), torch.zeros(3, dtype=torch.int32), 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        tell.ell_combine_cuda(torch.from_numpy(nbr), torch.from_numpy(wgt),
+                              torch.from_numpy(vals), "hop", "min",
+                              torch.ones(nbr.shape, dtype=torch.bool))
+    with pytest.raises(ValueError, match="CUDA"):
+        tell.ell_spmm_cuda(torch.from_numpy(nbr), torch.from_numpy(wgt), torch.zeros(51, 3))
+    with pytest.raises(ValueError, match="CUDA"):
+        tbag.embedding_bag_cuda(torch.ones(5, 3), torch.zeros(2, 2, dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_attention_cuda(torch.ones(1, 2, 4, 8), torch.ones(1, 1, 4, 8),
+                                 torch.ones(1, 1, 4, 8))
+
+
+def test_library_name_covers_the_shared_headers(tmp_path, monkeypatch):
+    """A header edit rebuilds every kernel: the library's name hashes the
+    source and every csrc/*.cuh."""
+    (tmp_path / "a.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "b.cu").write_text("// no include\n")
+    (tmp_path / "h.cuh").write_text("// v1\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = {n: _build._lib_path(n) for n in ("a", "b")}
+    assert before["a"] != before["b"] and before == {n: _build._lib_path(n) for n in ("a", "b")}
+    (tmp_path / "h.cuh").write_text("// v2\n")
+    assert all(_build._lib_path(n) != p for n, p in before.items())
+    assert all(_build._lib_path(n).parent == _build.BUILD_DIR for n in before)
