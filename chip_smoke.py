@@ -7,6 +7,8 @@
 Phases (any failure exits non-zero; nothing is caught):
   1. card      — nvidia-smi name and power limit, torch/CUDA versions;
   2. build     — nvcc builds every kernel (csrc/*.cu), one nvcc per source;
+                 the tensor-core flash library's SASS (cuobjdump -sass) must
+                 hold HGMMA (wgmma) and UTMALDG (TMA loads);
   3. kernels   — each CUDA kernel against its plain PyTorch version on the
                  card over shape sweeps (bit-equal for ell_combine, its
                  deletion overlay (also bit-equal to the kernel on the
@@ -16,8 +18,16 @@ Phases (any failure exits non-zero; nothing is caught):
                  W in {1, 3, 32, 256}, D in {8, 10, 64, 70, 128}, float32
                  (rtol 1e-5) and bfloat16 (rtol 1.6e-2); embedding_bag sum
                  and mean (rtol 1e-5); flash_attention over ragged Sq and
-                 Skv, Sq < Skv, causal and not, float32 (2e-4) and bfloat16
-                 (5e-2, and 1e-2 in relative norm);
+                 Skv (across the tensor-core kernel's 128-row tiles), Sq <
+                 Skv (decode offsets over several kv tiles), causal and not,
+                 float32 (2e-4) and bfloat16 (5e-2, and 1e-2 in relative
+                 norm), each call on the route `flash_attention.route` names
+                 (bf16 with D % 8 == 0: tensor cores; float32 and bf16 D = 12:
+                 CUDA cores); in bfloat16 each is also held within
+                 ROUNDED_REL_ERR (5e-3) in relative norm of
+                 `attention_rounded`, the plain version that rounds where the
+                 kernels do, and a control shows that dropping key 0 from
+                 every row moves `attention_rounded` by more than twice that;
   4. main path — RMAT scale 22, edge factor 16 (Graph500 a/b/c 0.57/0.19/
                  0.19, seed 1, undirected): each kernel timed at the main
                  path's shapes, then bfs, sssp, wcc, pagerank and kcore(16)
@@ -35,14 +45,26 @@ Phases (any failure exits non-zero; nothing is caught):
                  (gatedgcn); (c) embedding_bag over DeepFM's table (39 fields
                  x 100,000 rows x 10), B = 16,384, sum and mean; (d) one
                  granite-3-8b attention layer (d_model 4096, 32/8 heads,
-                 head_dim 128, bf16, B = 4, S = 1024) through
-                 `gqa_attention(use_flash=True)` against `use_flash=False`
-                 within 5e-2 and 1e-2 in relative norm, and in float32 within
-                 2e-4, the flash kernel alone likewise; each kernel timed
+                 head_dim 128, B = 4, S = 1024) through
+                 `gqa_attention(use_flash=True)` against `use_flash=False`,
+                 in bf16 (the tensor-core kernel) within 5e-2 and 1e-2 in
+                 relative norm, and in float32 (the CUDA-core kernel) within
+                 2e-4, each flash kernel alone likewise, the bf16 one also
+                 within 5e-3 of `attention_rounded`; each kernel timed
                  beside its plain version and, where one exists, a single
                  PyTorch call;
-  7. report    — the `kernels` JSON line (all seven kernels), the card line,
-                 then the last line {"ok": true, "device": {...}}.
+  7. report    — the `kernels` JSON line (all eight kernels, flash as two
+                 routes), the card line, then the last line
+                 {"ok": true, "device": {...}}.
+
+Kernel times are CUDA-event means over a run of calls. Kernels under 0.1 ms
+(frontier_pack, embedding_bag) and their library calls (torch.nonzero_static,
+F.embedding_bag) take the median of 7 event-timed batches of 50 calls
+replayed from a CUDA graph: the card's time, without the Python function's
+host time. Beside them are logged, for kernel and library call alike, the
+median of 7 event-timed batches of 50 calls through the Python function
+(torch.nonzero, which waits for its count on the host, for the library) and
+the host time to enqueue one call.
 
 It exits non-zero, printing no result, where torch.cuda.is_available() is
 false or the package is missing beside it.
@@ -53,6 +75,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -86,19 +109,57 @@ def bit_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
     return a.shape == b.shape and a.dtype == b.dtype and torch.equal(bits(a), bits(b))
 
 
-def cuda_ms(fn, iters: int = 20, warm: int = 3) -> float:
-    """Mean time of `fn` on the card: CUDA events around `iters` calls."""
+def cuda_ms(fn, iters: int = 20, warm: int = 3, batches: int = 1) -> float:
+    """Time of one call of `fn` on the card: the median over `batches` of
+    the mean of `iters` calls between CUDA events (several batches for
+    kernels of tens of microseconds, whose single runs spread widely on a
+    shared host)."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(iters):
+    times = []
+    for _ in range(batches):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(iters):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / iters)
+    return sorted(times)[batches // 2]
+
+
+def graph_ms(fn, batches: int = 7, per: int = 50) -> float:
+    """Like `cuda_ms(fn, per, batches=batches)`, with the `per` calls
+    captured once in a CUDA graph and replayed: the card's time for the
+    calls, without the Python wrapper's host time (a kernel of ~10
+    microseconds launched from Python is otherwise timed by the host's
+    enqueue rate)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(per):
+            fn()
+    return cuda_ms(graph.replay, 1, 1, batches) / per
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """Host time to enqueue one call of `fn` (no synchronisation inside)."""
+    for _ in range(5):
         fn()
-    b.record()
-    b.synchronize()
-    return a.elapsed_time(b) / iters
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
 
 
 def abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -118,6 +179,16 @@ def check_rel(what: str, a: torch.Tensor, b: torch.Tensor, limit: float) -> None
     r = rel_err(a, b)
     if not r <= limit:
         raise AssertionError(f"{what}: relative norm error {r:.3g} > {limit}")
+
+
+def dropped_key_control(fa, q, k, v, causal: bool, ref: torch.Tensor) -> float:
+    """Relative norm by which dropping key 0 from every row moves
+    `ref` = `attention_rounded(q, k, v, causal)`: the size of a fault the
+    bfloat16 check must see (causal with Sq == Skv leaves out row 0, which
+    would see no key)."""
+    lo = 1 if causal and q.shape[2] == k.shape[2] else 0
+    dropped = fa.attention_rounded(q[:, :, lo:], k[:, :, 1:], v[:, :, 1:], causal)
+    return rel_err(dropped, ref[:, :, lo:])
 
 
 def bound_ms(nbytes: float, ops: float, peak: float = F32_OPS_PER_S) -> tuple[float, str]:
@@ -265,30 +336,52 @@ def sweep_bag(dev, rng, bag) -> float:
     return worst
 
 
-def sweep_flash(dev, rng, fa) -> float:
-    worst, worst_rel = 0.0, 0.0
+def sweep_flash(dev, rng, fa, ops, rounded: dict) -> dict:
+    """Both flash routes against the plain version; returns the worst
+    absolute error of each kernel (bf16 for the tensor cores, float32 for
+    the CUDA cores) and puts each kernel's worst bf16 relative norm error
+    against `attention_rounded` into `rounded`."""
+    worst = {fa.TENSOR_CORES: 0.0, fa.CUDA_CORES: 0.0}
+    worst_rel, least_control = 0.0, float("inf")
     for b, hq, hkv, sq, skv, d in [(1, 2, 2, 32, 32, 16), (2, 4, 2, 64, 64, 32),
                                    (1, 8, 1, 100, 100, 64), (2, 4, 2, 16, 80, 32),
                                    (1, 4, 4, 70, 130, 128), (1, 2, 1, 1, 37, 24),
-                                   (1, 32, 8, 200, 200, 128), (2, 6, 3, 65, 129, 8)]:
+                                   (1, 32, 8, 200, 200, 128), (2, 6, 3, 65, 129, 8),
+                                   (2, 4, 2, 200, 333, 64), (1, 6, 3, 300, 300, 128),
+                                   (1, 4, 2, 130, 400, 128), (1, 4, 1, 257, 513, 96),
+                                   (1, 4, 2, 150, 170, 12), (1, 32, 8, 1024, 1024, 128)]:
         shapes = ((b, hq, sq, d), (b, hkv, skv, d), (b, hkv, skv, d))
         base = [rng.standard_normal(sh).astype(np.float32) for sh in shapes]
         for dt in (torch.float32, torch.bfloat16):
             q, k, v = (torch.from_numpy(x).to(dev).to(dt) for x in base)
+            kernel = fa.route(dt, d)
             for causal in (True, False):
+                ops.reset_launches()
                 a = fa.flash_attention_cuda(q, k, v, causal)
+                if ops.launch_counts()[kernel] != 1:
+                    raise AssertionError(f"flash D={d} {dt} did not take the {kernel} route")
                 p = fa.attention_plain(q, k, v, causal)
                 torch.cuda.synchronize()
                 tol = 2e-4 if dt == torch.float32 else 5e-2
                 torch.testing.assert_close(a.float(), p.float(), rtol=tol, atol=tol)
-                if dt == torch.float32:
-                    worst = max(worst, abs_err(a, p))
-                else:
-                    check_rel(f"flash B={b} Hq={hq} Hkv={hkv} Sq={sq} Skv={skv} D={d}", a, p,
-                              fa.BF16_REL_ERR)
+                if dt == torch.float32 or kernel == fa.TENSOR_CORES:
+                    worst[kernel] = max(worst[kernel], abs_err(a.float(), p.float()))
+                if dt == torch.bfloat16:
+                    what = f"flash B={b} Hq={hq} Hkv={hkv} Sq={sq} Skv={skv} D={d} {causal=}"
+                    check_rel(what, a, p, fa.BF16_REL_ERR)
                     worst_rel = max(worst_rel, rel_err(a, p))
+                    r = fa.attention_rounded(q, k, v, causal)
+                    check_rel(f"{what} vs attention_rounded", a, r, fa.ROUNDED_REL_ERR)
+                    rounded[kernel] = max(rounded.get(kernel, 0.0), rel_err(a, r))
+                    control = dropped_key_control(fa, q, k, v, causal, r)
+                    if not control > 2 * fa.ROUNDED_REL_ERR:
+                        raise AssertionError(f"{what}: a dropped key moves the output by "
+                                             f"only {control:.3g}")
+                    least_control = min(least_control, control)
     log(f"[3 kernels] flash_attention bfloat16: worst relative norm error {worst_rel:.3g} "
-        f"(limit {fa.BF16_REL_ERR})")
+        f"against the plain version (limit {fa.BF16_REL_ERR}); against attention_rounded "
+        f"{rounded} (limit {fa.ROUNDED_REL_ERR}); one dropped key moves attention_rounded by "
+        f"at least {least_control:.3g}")
     return worst
 
 
@@ -363,12 +456,14 @@ def profile_runs(engine, progs, g, pack, cfg, top: int = 8) -> None:
             log(f"[profile]   {dev_us(e) / 1e3:9.2f} ms {e.count:6d}x  {e.key[:90]}")
 
 
-def slice_phase(dev, pack, ops, ell, bag, fa, L, report, err) -> dict:
+def slice_phase(dev, pack, ops, ell, bag, fa, L, report, err, rounded) -> dict:
     """Phase 6: the kernel library's second slice at full width. Drives the
     overlay, ell_spmm, embedding_bag and the flash kernel through `ops` and
     `nn.layers` with the counts set to 0 just before, checks every result,
-    then times each kernel beside its plain version (uncounted). Fills
-    `report`; returns the four kernels' launch counts."""
+    then times each kernel beside its plain version (uncounted). The
+    granite layer runs in bf16 (the tensor-core flash kernel) and in float32
+    (the CUDA-core one). Fills `report`; returns the five kernels' launch
+    counts."""
     n, slices = pack.n_nodes, pack.slices
     gen = torch.Generator(device=dev)
     gen.manual_seed(6)
@@ -408,10 +503,13 @@ def slice_phase(dev, pack, ops, ell, bag, fa, L, report, err) -> dict:
     h = L.rms_norm(x, params["attn_norm"])
     attn, (k, v) = L.gqa_attention(h, params, n_heads=hq, n_kv=hkv, positions=pos,
                                    use_flash=True)
+    p32 = {key: w.float() for key, w in params.items()}
+    a32, _ = L.gqa_attention(h.float(), p32, n_heads=hq, n_kv=hkv, positions=pos,
+                             use_flash=True)
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     mine = {key: counts[key] for key in
-            ("ell_combine_overlay", "ell_spmm", "embedding_bag", "flash_attention")}
+            ("ell_combine_overlay", "ell_spmm", "embedding_bag", fa.TENSOR_CORES, fa.CUDA_CORES)}
     log(f"[6 slice] counted run {time.perf_counter() - t0:.3f} s; launches {mine}")
 
     # -- (a) deletion overlay -------------------------------------------------
@@ -435,7 +533,6 @@ def slice_phase(dev, pack, ops, ell, bag, fa, L, report, err) -> dict:
                    for s, dd in zip(slices, deads)]
     bnd = bound_ms(slots * 9 + (n + 1) * 4 + rows * 4, slots * 2)
     report["ell_combine_overlay"] = dict(
-        source="src/repro_torch/csrc/ell_combine.cu",
         replaces="src/repro/kernels/ell_spmv.py:74",
         shape=f"{len(slices)} RMAT ELL slices, {slots} slots, add_w/min, 1 % dead",
         max_abs_err=err["ell_combine_overlay"], ms=cuda_ms(ovk, 10),
@@ -472,7 +569,6 @@ def slice_phase(dev, pack, ops, ell, bag, fa, L, report, err) -> dict:
     d = 64
     bnd = bound_ms(slots * 8 + used_rows * d * 4 + rows * d * 4, 2 * real * d)
     report["ell_spmm"] = dict(
-        source="src/repro_torch/csrc/ell_spmm.cu",
         replaces="src/repro/kernels/ell_spmv.py:150",
         shape=f"{len(slices)} RMAT ELL slices, {real} live slots, D=64 float32 "
               f"(D=70: {times[70][0]:.4f} ms, plain {times[70][1]:.4f}, library {times[70][2]:.4f})",
@@ -492,14 +588,19 @@ def slice_phase(dev, pack, ops, ell, bag, fa, L, report, err) -> dict:
     uniq = int(torch.unique(idx).numel())
     bnd = bound_ms(uniq * dim * 4 + idx.numel() * 4 + nbag * dim * 4, nbag * fields * dim)
     report["embedding_bag"] = dict(
-        source="src/repro_torch/csrc/embedding_bag.cu",
         replaces="src/repro/kernels/embedding_bag.py:24",
         shape=f"table {fields * per_field}x{dim} float32, B={nbag}, K={fields}, sum",
         max_abs_err=max(b_err, err["embedding_bag"]),
-        ms=cuda_ms(lambda: bag.embedding_bag_cuda(table, idx, "sum")),
+        ms=graph_ms(lambda: bag.embedding_bag_cuda(table, idx, "sum")),
         plain_ms=cuda_ms(lambda: bag.embedding_bag_plain(table, idx, "sum"), 5),
         bound_ms=bnd[0], bound_by=bnd[1],
-        library_ms=cuda_ms(lambda: F.embedding_bag(idx64, table, mode="sum")))
+        library_ms=graph_ms(lambda: F.embedding_bag(idx64, table, mode="sum")),
+        wrapper_loop_ms=cuda_ms(lambda: bag.embedding_bag_cuda(table, idx, "sum"), 50, 5, 7),
+        library_loop_ms=cuda_ms(lambda: F.embedding_bag(idx64, table, mode="sum"), 50, 5, 7))
+    r = report["embedding_bag"]
+    log(f"[6 slice] (c) embedding_bag sum: card {r['ms']:.4f} ms against F.embedding_bag's "
+        f"{r['library_ms']:.4f} ms (both CUDA graphs); through the Python function "
+        f"{r['wrapper_loop_ms']:.4f} ms against {r['library_loop_ms']:.4f} ms a call")
     del bags, table, idx, idx64
 
     # -- (d) the granite-3-8b attention layer --------------------------------
@@ -508,9 +609,8 @@ def slice_phase(dev, pack, ops, ell, bag, fa, L, report, err) -> dict:
     plain, _ = L.gqa_attention(h, params, n_heads=hq, n_kv=hkv, positions=pos, use_flash=False)
     if attn.shape != (batch, seq, d_model) or not bool(torch.isfinite(attn).all()):
         raise AssertionError("granite attention layer: wrong shape or non-finite values")
-    p32 = {key: w.float() for key, w in params.items()}
-    a32, b32 = (L.gqa_attention(h.float(), p32, n_heads=hq, n_kv=hkv, positions=pos,
-                                use_flash=flag)[0] for flag in (True, False))
+    b32, _ = L.gqa_attention(h.float(), p32, n_heads=hq, n_kv=hkv, positions=pos,
+                             use_flash=False)
     log(f"[6 slice] (d) granite-3-8b attention layer B={batch} S={seq}: use_flash=True vs "
         f"False in bfloat16 max abs diff {abs_err(attn.float(), plain.float()):.3g}, relative "
         f"norm {rel_err(attn, plain):.3g} (limit {fa.BF16_REL_ERR}); in float32 max abs diff "
@@ -522,30 +622,51 @@ def slice_phase(dev, pack, ops, ell, bag, fa, L, report, err) -> dict:
     del p32, a32, b32
     q = L.rope((h @ params["wq"]).reshape(batch, seq, hq, dh), pos).transpose(1, 2).contiguous()
     k, v = k.contiguous(), v.contiguous()
-    a, pl = fa.flash_attention_cuda(q, k, v, True), fa.attention_plain(q, k, v, True)
     q32, k32, v32 = q.float(), k.float(), v.float()
+    a, pl = fa.flash_attention_cuda(q, k, v, True), fa.attention_plain(q, k, v, True)
     a32, p32 = fa.flash_attention_cuda(q32, k32, v32, True), fa.attention_plain(q32, k32, v32, True)
     kr, vr = k.repeat(1, hq // hkv, 1, 1), v.repeat(1, hq // hkv, 1, 1)   # group-major
+    kr32, vr32 = kr.float(), vr.float()
     lib = F.scaled_dot_product_attention(q, kr, vr, is_causal=True)
-    log(f"[6 slice] (d) flash vs plain in bfloat16 max abs diff {abs_err(a.float(), pl.float()):.3g}, "
-        f"relative norm {rel_err(a, pl):.3g}; in float32 max abs diff {abs_err(a32, p32):.3g}, "
-        f"relative norm {rel_err(a32, p32):.3g}; output rms {float(pl.float().square().mean().sqrt()):.3g}; "
+    log(f"[6 slice] (d) flash vs plain in bfloat16 (tensor cores) max abs diff "
+        f"{abs_err(a.float(), pl.float()):.3g}, relative norm {rel_err(a, pl):.3g}; in float32 "
+        f"(CUDA cores) max abs diff {abs_err(a32, p32):.3g}, relative norm "
+        f"{rel_err(a32, p32):.3g}; "
+        f"output rms {float(pl.float().square().mean().sqrt()):.3g}; "
         f"vs scaled_dot_product_attention {abs_err(a.float(), lib.float()):.3g}")
     torch.testing.assert_close(a.float(), pl.float(), rtol=5e-2, atol=5e-2)
-    check_rel("flash kernel (bfloat16)", a, pl, fa.BF16_REL_ERR)
+    check_rel("flash kernel (bfloat16, tensor cores)", a, pl, fa.BF16_REL_ERR)
     torch.testing.assert_close(a32, p32, rtol=2e-4, atol=2e-4)
-    del q32, k32, v32, a32, p32
+    r = fa.attention_rounded(q, k, v, True)
+    control = dropped_key_control(fa, q, k, v, True, r)
+    log(f"[6 slice] (d) flash (bfloat16, tensor cores) vs attention_rounded: relative norm "
+        f"{rel_err(a, r):.3g} (limit {fa.ROUNDED_REL_ERR}); key 0 dropped from every row "
+        f"moves attention_rounded by {control:.3g}")
+    check_rel("flash kernel (bfloat16, tensor cores) vs attention_rounded", a, r,
+              fa.ROUNDED_REL_ERR)
+    if not control > 2 * fa.ROUNDED_REL_ERR:
+        raise AssertionError(f"granite: a dropped key moves the output by only {control:.3g}")
+    rounded[fa.TENSOR_CORES] = max(rounded[fa.TENSOR_CORES], rel_err(a, r))
+    del r
     pairs = batch * hq * seq * (seq + 1) // 2          # causal (query, key) pairs
-    bnd = bound_ms((q.numel() * 2 + k.numel() * 2) * 2, 4 * pairs * dh, BF16_OPS_PER_S)
-    report["flash_attention"] = dict(
-        source="src/repro_torch/csrc/flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention.py:28",
-        shape=f"granite-3-8b layer: q {tuple(q.shape)}, kv {tuple(k.shape)}, bf16, causal",
-        max_abs_err=max(abs_err(a.float(), pl.float()), err["flash_attention"]),
-        ms=cuda_ms(lambda: fa.flash_attention_cuda(q, k, v, True), 10),
-        plain_ms=cuda_ms(lambda: fa.attention_plain(q, k, v, True), 3, 1),
-        bound_ms=bnd[0], bound_by=bnd[1],
-        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q, kr, vr, is_causal=True), 10))
+    shape = f"granite-3-8b layer: q {tuple(q.shape)}, kv {tuple(k.shape)}, causal"
+    for kernel, qq, kk, vv, kx, vx, peak, what, e in (
+            (fa.TENSOR_CORES, q, k, v, kr, vr, BF16_OPS_PER_S, "bf16",
+             abs_err(a.float(), pl.float())),
+            (fa.CUDA_CORES, q32, k32, v32, kr32, vr32, F32_OPS_PER_S, "float32",
+             abs_err(a32, p32))):
+        bnd = bound_ms((qq.numel() * 2 + kk.numel() * 2) * qq.element_size(), 4 * pairs * dh,
+                       peak)
+        report[kernel] = dict(
+            replaces="src/repro/kernels/flash_attention.py:28",
+            shape=f"{shape}, {what}",
+            max_abs_err=max(e, err[kernel]), bf16_rounded_rel_err=rounded[kernel],
+            ms=cuda_ms(lambda: fa.flash_attention_cuda(qq, kk, vv, True), 10),
+            plain_ms=cuda_ms(lambda: fa.attention_plain(qq, kk, vv, True), 3, 1),
+            bound_ms=bnd[0], bound_by=bnd[1],
+            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(qq, kx, vx, is_causal=True),
+                               10))
+    del q32, k32, v32, kr32, vr32, a32, p32
     for key in mine:
         r = report[key]
         log(f"[6 slice] {key}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, bound "
@@ -598,18 +719,29 @@ def main() -> int:
         spills = [x.strip() for x in rep.splitlines()
                   if "spill" in x and not x.strip().startswith("0 bytes spill")
                   and " 0 bytes spill stores, 0 bytes spill loads" not in x]
+        smem = [int(x) for x in re.findall(r"(\d+) bytes smem", rep)]
         log(f"[2 build] {name}: {len(regs)} kernels, max {max(regs, default=0)} "
-            f"registers, spill lines {len(spills)}")
+            f"registers, max {max(smem, default=0)} bytes of static shared memory, "
+            f"spill lines {len(spills)}")
     log(f"[2 build] nvcc build {time.perf_counter() - t0:.1f} s")
+    sass = subprocess.run(
+        [str(Path(_build._nvcc()).parent / "cuobjdump"), "-sass",
+         str(_build._lib_path(_build.KERNELS[fa.TENSOR_CORES]))],
+        capture_output=True, text=True, check=True, timeout=120).stdout
+    found = {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
+    log(f"[2 build] {_build.KERNELS[fa.TENSOR_CORES]} SASS: {found}")
+    if not all(found.values()):
+        raise AssertionError(f"the tensor-core flash kernel lacks wgmma or TMA loads: {found}")
 
     rng = np.random.default_rng(0)
+    rounded = {}
     err = {"ell_combine": sweep_ell(dev, rng, ell),
            "ell_combine_overlay": sweep_overlay(dev, rng, ell),
            "frontier_pack": sweep_pack(dev, rng, fp),
            "segment_reduce": sweep_segment(dev, rng, sr),
            "ell_spmm": sweep_spmm(dev, rng, ell),
            "embedding_bag": sweep_bag(dev, rng, bag),
-           "flash_attention": sweep_flash(dev, rng, fa)}
+           **sweep_flash(dev, rng, fa, ops, rounded)}
     log(f"[3 kernels] sweeps passed; max abs err vs plain (float32) {err}")
     if args.quick:
         return 0
@@ -637,7 +769,6 @@ def main() -> int:
     e_err = max(abs_err(a, b) for a, b in zip(ell_k(), ell_p()))
     bnd = bound_ms(slots * 8 + (n + 1) * 4 + rows * 4, slots * 2)
     report["ell_combine"] = dict(
-        source="src/repro_torch/csrc/ell_combine.cu",
         replaces="src/repro/kernels/ell_spmv.py:62",
         max_abs_err=max(e_err, err["ell_combine"]), ms=cuda_ms(ell_k, 10),
         plain_ms=cuda_ms(ell_p, 3, 1), bound_ms=bnd[0], bound_by=bnd[1],
@@ -649,12 +780,22 @@ def main() -> int:
     if not all(bit_equal(x, y) for x, y in zip(pk(), pp())):
         raise AssertionError("frontier_pack differs at the main path's shape")
     bnd = bound_ms(n + n * 4 + 5, n * 2)
+    lib = lambda: torch.nonzero_static(mask, size=n, fill_value=n)   # int64 ids, no count
+    lib_loop = lambda: torch.nonzero(mask)                           # waits for its count
+    if not torch.equal(pk()[0].long(), lib()[:, 0]):
+        raise AssertionError("frontier_pack and torch.nonzero_static disagree")
     report["frontier_pack"] = dict(
-        source="src/repro_torch/csrc/frontier_pack.cu",
         replaces="src/repro/kernels/frontier_pack.py:25",
-        max_abs_err=err["frontier_pack"], ms=cuda_ms(pk), plain_ms=cuda_ms(pp, 5),
-        bound_ms=bnd[0], bound_by=bnd[1],
-        library_ms=cuda_ms(lambda: torch.nonzero(mask), 5))
+        max_abs_err=err["frontier_pack"], ms=graph_ms(pk), plain_ms=cuda_ms(pp, 5),
+        bound_ms=bnd[0], bound_by=bnd[1], library_ms=graph_ms(lib),
+        wrapper_loop_ms=cuda_ms(pk, 50, 5, 7), library_loop_ms=cuda_ms(lib_loop, 50, 5, 7),
+        host_us=host_us(pk), library_host_us=host_us(lib_loop))
+    r = report["frontier_pack"]
+    log(f"[4 main] frontier_pack n={n} density 0.5: card {r['ms']:.4f} ms against "
+        f"torch.nonzero_static's {r['library_ms']:.4f} ms (both CUDA graphs); through the "
+        f"Python function {r['wrapper_loop_ms']:.4f} ms a call with {r['host_us']:.1f} us of "
+        f"host enqueue, torch.nonzero {r['library_loop_ms']:.4f} ms a call with "
+        f"{r['library_host_us']:.1f} us")
 
     sid = torch.sort(g.out.col_idx).values
     sv = torch.rand(m, device=dev)
@@ -668,7 +809,6 @@ def main() -> int:
     sid64 = sid.long()
     bnd = bound_ms(m * 8 + n * 4, m)
     report["segment_reduce"] = dict(
-        source="src/repro_torch/csrc/segment_reduce.cu",
         replaces="src/repro/kernels/segment_reduce.py:20",
         max_abs_err=max(err["segment_reduce"], abs_err(a, b)),
         ms=cuda_ms(sk), plain_ms=cuda_ms(sp, 5), bound_ms=bnd[0], bound_by=bnd[1],
@@ -736,7 +876,7 @@ def main() -> int:
                 f"pull {int(ss['pull_iters'])})")
 
     # -- phase 6: the second slice at full width ----------------------------
-    launches.update(slice_phase(dev, pack, ops, ell, bag, fa, L, report, err))
+    launches.update(slice_phase(dev, pack, ops, ell, bag, fa, L, report, err, rounded))
     del pack
     torch.cuda.empty_cache()
 
@@ -745,8 +885,9 @@ def main() -> int:
     for name in _build.KERNELS:
         if launches[name] <= 0:
             raise AssertionError(f"{name} was not launched on its path")
-        kernels.append(dict(name=name, route="cuda", launches=launches[name],
-                            passed=True, **report[name]))
+        kernels.append(dict(name=name, route="cuda",
+                            source=f"src/repro_torch/csrc/{_build.KERNELS[name]}.cu",
+                            launches=launches[name], passed=True, **report[name]))
     log(f"[7 report] total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card_line())

@@ -13,6 +13,7 @@ CPU has no `nvcc`.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -25,11 +26,13 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 #: <checkout>/build/kernels (the checkout root holds src/repro_torch/)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 #: each kernel and the source that holds it (the deletion overlay is a
-#: template flag of `ell_combine.cu`, counted apart)
+#: template flag of `ell_combine.cu`, counted apart; flash attention has two
+#: routes: the tensor cores for bfloat16, the CUDA cores for the rest)
 KERNELS = {"ell_combine": "ell_combine", "ell_combine_overlay": "ell_combine",
            "frontier_pack": "frontier_pack", "segment_reduce": "segment_reduce",
            "ell_spmm": "ell_spmm", "embedding_bag": "embedding_bag",
-           "flash_attention": "flash_attention"}
+           "flash_attention": "flash_attention_wgmma",
+           "flash_attention_f32": "flash_attention"}
 SOURCES = tuple(dict.fromkeys(KERNELS.values()))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -143,8 +146,21 @@ def require(t, name: str, dtype, ndim: int, device) -> int:
     return t.data_ptr()
 
 
-def stream_of(device) -> int:
-    """PyTorch's current CUDA stream on `device`, as an int for ctypes."""
+def device_guard(device):
+    """A context that makes `device` current for a launch; a no-op when it
+    already is (entering `torch.cuda.device` costs microseconds of host time,
+    more than a small kernel takes on the card)."""
     import torch
 
-    return torch.cuda.current_stream(device).cuda_stream
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+def stream_of(device) -> int:
+    """PyTorch's current CUDA stream on `device`, as an int for ctypes (the
+    raw handle, without building a `torch.cuda.Stream` object)."""
+    import torch
+
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)

@@ -150,7 +150,7 @@ def ell_combine_cuda(nbr: torch.Tensor, wgt: torch.Tensor, vals: torch.Tensor,
         p_dead = _build.require(dead, "dead", torch.int8, 2, dev)
     out = torch.empty((r,), dtype=torch.float32, device=dev)
     fn = _build.entry("ell_combine", "ell_combine_launch", _ARGTYPES)
-    with torch.cuda.device(dev):
+    with _build.device_guard(dev):
         err = fn(p_nbr, p_wgt, p_dead, p_vals, out.data_ptr(), r, w,
                  vals.shape[0] - 1, COMPUTE_OPS[compute], COMBINE_OPS[combine],
                  _build.stream_of(dev))
@@ -214,7 +214,7 @@ def ell_spmm_cuda(nbr: torch.Tensor, wgt: torch.Tensor, feats: torch.Tensor
         raise ValueError(f"feature width {d} outside [1, {MAX_FEATURES}]")
     out = torch.empty((r, d), dtype=feats.dtype, device=dev)
     fn = _build.entry("ell_spmm", "ell_spmm_launch", _SPMM_ARGTYPES)
-    with torch.cuda.device(dev):
+    with _build.device_guard(dev):
         err = fn(p_nbr, p_wgt, p_f, out.data_ptr(), r, w, d, npad - 1,
                  SPMM_DTYPES[feats.dtype], _build.stream_of(dev))
     _build.check(err, "ell_spmm")

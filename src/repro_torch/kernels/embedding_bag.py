@@ -59,7 +59,7 @@ def embedding_bag_cuda(table: torch.Tensor, idx: torch.Tensor,
         raise ValueError(f"empty bags or table: K={k}, V={v}")
     out = torch.empty((b, d), dtype=torch.float32, device=dev)
     fn = _build.entry("embedding_bag", "embedding_bag_launch", _ARGTYPES)
-    with torch.cuda.device(dev):
+    with _build.device_guard(dev):
         err = fn(p_tab, p_idx, out.data_ptr(), b, k, d, v, MODES[mode],
                  _build.stream_of(dev))
     _build.check(err, "embedding_bag")

@@ -5,10 +5,11 @@ Port of `repro.kernels.frontier_pack.frontier_pack` (the Pallas
 becomes the sorted, unique frontier `(ids (cap,), count, overflow)` padded
 with the sentinel n — the triple of `core.frontier.compact_mask`.
 
-The CUDA kernel is `csrc/frontier_pack.cu` (warp `__ballot_sync` +
-`__popc` ranks, a block scan, then a scan over the block counts); its header
-says what bounds it on the H100. The plain version keeps the TPU kernel's
-two-level structure: a per-block compaction, then the epilogue.
+The CUDA kernel is `csrc/frontier_pack.cu`: one pass over tiles of 4,096
+lanes (warp `__ballot_sync` + `__popc` ranks, a scan with decoupled
+look-back across tiles), then a small launch for the sentinel tail; its
+header says what bounds it on the H100. The plain version keeps the TPU
+kernel's two-level structure: a per-block compaction, then the epilogue.
 """
 
 from __future__ import annotations
@@ -64,27 +65,28 @@ def frontier_pack_plain(mask: torch.Tensor, cap: int, block: int = BLOCK):
     return concat_blocks(ids, counts, cap, sentinel=n)
 
 
+#: lanes per tile of the CUDA kernel (one status word each)
+TILE = 4096
+
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p)
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p)
 
 
 def frontier_pack_cuda(mask: torch.Tensor, cap: int):
-    """Launch `csrc/frontier_pack.cu`; count and overflow stay on the card."""
+    """Launch `csrc/frontier_pack.cu`; count and overflow stay on the card.
+    The only scratch is one int64 status word per tile, the ticket and the
+    total."""
     dev = mask.device
     p_mask = _build.require(mask, "mask", torch.bool, 1, dev)
     n = mask.shape[0]
-    nb = -(-n // BLOCK)
-    block_ids = torch.empty((max(nb, 1) * BLOCK,), dtype=torch.int32, device=dev)
-    block_cnt = torch.empty((max(nb, 1),), dtype=torch.int32, device=dev)
-    block_off = torch.empty((nb + 1,), dtype=torch.int32, device=dev)
+    tiles = max(-(-n // TILE), 1)
+    aux = torch.empty((tiles + 2,), dtype=torch.int64, device=dev)
     ids = torch.empty((cap,), dtype=torch.int32, device=dev)
     count = torch.empty((), dtype=torch.int32, device=dev)
     overflow = torch.empty((), dtype=torch.bool, device=dev)
     fn = _build.entry("frontier_pack", "frontier_pack_launch", _ARGTYPES)
-    with torch.cuda.device(dev):
-        err = fn(p_mask, n, cap, block_ids.data_ptr(), block_cnt.data_ptr(),
-                 block_off.data_ptr(), ids.data_ptr(), count.data_ptr(),
+    with _build.device_guard(dev):
+        err = fn(p_mask, n, cap, aux.data_ptr(), ids.data_ptr(), count.data_ptr(),
                  overflow.data_ptr(), _build.stream_of(dev))
     _build.check(err, "frontier_pack")
     _build.LAUNCHES["frontier_pack"] += 1

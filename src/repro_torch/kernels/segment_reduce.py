@@ -77,7 +77,7 @@ def segment_reduce_cuda(vals: torch.Tensor, seg_ids: torch.Tensor, num: int,
                             device=dev)
     long_count = torch.empty((1,), dtype=torch.int32, device=dev)
     fn = _build.entry("segment_reduce", "segment_reduce_launch", _ARGTYPES)
-    with torch.cuda.device(dev):
+    with _build.device_guard(dev):
         err = fn(p_vals, p_ids, e, d, num, COMBINE_OPS[combine], fill,
                  out.data_ptr(), long_list.data_ptr(), long_count.data_ptr(),
                  _build.stream_of(dev))

@@ -75,6 +75,35 @@ def test_plain_attention_bf16():
     np.testing.assert_allclose(_f32(oracle), _f32(t), rtol=5e-2, atol=5e-2)
 
 
+def _rel(a, b):
+    a, b = _f32(a), _f32(b)
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d", [(1, 4, 2, 128, 400, 128), (1, 2, 1, 64, 512, 64),
+                                               (1, 2, 1, 48, 48, 32), (2, 4, 2, 16, 48, 24)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_rounded_attention_tracks_the_flash_kernel(b, hq, hkv, sq, skv, d, causal):
+    """`attention_rounded` rounds where the Pallas kernel rounds: within
+    2e-4 of it in float32, within ROUNDED_REL_ERR in bfloat16 relative norm,
+    while dropping key 0 from every row moves it by more than twice that."""
+    q, k, v = _qkv(b, hq, hkv, sq, skv, d, skv + d)
+    f32 = tfa.attention_rounded(*map(torch.from_numpy, (q, k, v)), causal)
+    flash = jfa.flash_attention(*map(jnp.asarray, (q, k, v)), causal=causal, block_q=16,
+                                block_kv=16, interpret=True)
+    np.testing.assert_allclose(np.asarray(flash), f32.numpy(), rtol=2e-4, atol=2e-4)
+    jq, jk, jv = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v))
+    flash = jfa.flash_attention(jq, jk, jv, causal=causal, block_q=16, block_kv=16,
+                                interpret=True)
+    tq, tk, tv = (interop.tensor_from_numpy(np.asarray(x), "cpu") for x in (jq, jk, jv))
+    r = tfa.attention_rounded(tq, tk, tv, causal)
+    assert r.dtype == torch.bfloat16
+    assert _rel(flash, r) <= tfa.ROUNDED_REL_ERR
+    lo = 1 if causal and sq == skv else 0          # else row 0 would see no key
+    dropped = tfa.attention_rounded(tq[:, :, lo:], tk[:, :, 1:], tv[:, :, 1:], causal)
+    assert _rel(dropped, r[:, :, lo:]) > 2 * tfa.ROUNDED_REL_ERR
+
+
 def test_plain_attention_is_group_major():
     """Query head h reads kv head h % Hkv (not h // group)."""
     q, k, v = _qkv(1, 4, 2, 8, 8, 16, 2)

@@ -56,12 +56,36 @@ def test_ell_combine_bit_equal_to_plain(cuda, r, w, n):
             assert torch.equal(_bits(a), _bits(b)), (op, comb)
 
 
-@pytest.mark.parametrize("n,density,cap", [(3001, 0.5, 3001), (5000, 0.9, 100),
-                                           (1024, 0.0, 1024), (7, 1.0, 0)])
+@pytest.mark.parametrize("n,density,cap", [
+    (3001, 0.5, 3001), (5000, 0.9, 100), (1024, 0.0, 1024), (7, 1.0, 0),
+    # look-back edge cases: many tiles with a ragged last one (n % 4096 != 0),
+    # all lanes set, none set, cap below the total, cap 0, cap above n
+    (1_000_003, 0.5, 1_000_003), (1_000_003, 1.0, 1_000_003), (1_000_003, 0.0, 1_000_003),
+    (1_000_003, 0.5, 300_000), (1_000_003, 0.5, 0), (1_000_003, 0.3, 1_500_000),
+    (4096 * 40, 1.0, 4096 * 40), (0, 0.5, 5)])
 def test_frontier_pack_bit_equal_to_plain(cuda, n, density, cap):
     rng = np.random.default_rng(n)
     mask = torch.from_numpy(rng.random(n) < density).to(cuda)
     for a, b in zip(tfp.frontier_pack_cuda(mask, cap), tfp.frontier_pack_plain(mask, cap)):
+        assert torch.equal(a, b)
+
+
+def test_frontier_pack_twice_on_one_stream_resets_the_tile_states(cuda):
+    """Two calls in a row, no synchronisation between them: the second sees
+    none of the first's status words or ticket."""
+    rng = np.random.default_rng(11)
+    masks = [torch.from_numpy(rng.random(2_000_001) < d).to(cuda) for d in (0.9, 0.1)]
+    first = tfp.frontier_pack_cuda(masks[0], 2_000_001)
+    second = tfp.frontier_pack_cuda(masks[1], 2_000_001)
+    for got, mask in ((first, masks[0]), (second, masks[1])):
+        for a, b in zip(got, tfp.frontier_pack_plain(mask, 2_000_001)):
+            assert torch.equal(a, b)
+
+
+def test_frontier_pack_takes_an_unaligned_mask(cuda):
+    rng = np.random.default_rng(12)
+    mask = torch.from_numpy(rng.random(100_000) < 0.5).to(cuda)[3:]   # 16-byte misaligned
+    for a, b in zip(tfp.frontier_pack_cuda(mask, 99_997), tfp.frontier_pack_plain(mask, 99_997)):
         assert torch.equal(a, b)
 
 
@@ -153,14 +177,20 @@ def test_embedding_bag_matches_plain(cuda, v, d, b, k, mode):
 @pytest.mark.parametrize("b,hq,hkv,sq,skv,d", [(1, 2, 2, 32, 32, 16), (2, 4, 2, 64, 64, 32),
                                                (1, 8, 1, 100, 100, 64), (2, 4, 2, 16, 80, 32),
                                                (1, 4, 4, 70, 130, 128), (1, 2, 1, 1, 37, 24),
-                                               (1, 32, 8, 1024, 1024, 128)])
+                                               (1, 32, 8, 1024, 1024, 128),
+                                               # across the tensor-core kernel's 128-row tiles
+                                               (2, 4, 2, 200, 333, 64), (1, 6, 3, 300, 300, 128),
+                                               (1, 4, 2, 130, 400, 128), (1, 4, 1, 257, 513, 96),
+                                               (2, 2, 1, 150, 150, 8), (1, 4, 2, 150, 170, 12)])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_matches_plain(cuda, b, hq, hkv, sq, skv, d, causal, dtype):
     rng = np.random.default_rng(sq * d)
     q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(cuda).to(dtype)
                for s in ((b, hq, sq, d), (b, hkv, skv, d), (b, hkv, skv, d)))
+    ops.reset_launches()
     a = tfa.flash_attention_cuda(q, k, v, causal)
+    assert ops.launch_counts()[tfa.route(dtype, d)] == 1
     p = tfa.attention_plain(q, k, v, causal)
     assert a.dtype == dtype and a.shape == q.shape
     tol = 2e-4 if dtype == torch.float32 else 5e-2
@@ -168,19 +198,29 @@ def test_flash_attention_matches_plain(cuda, b, hq, hkv, sq, skv, d, causal, dty
     if dtype == torch.bfloat16:     # long rows average many values: hold the norm too
         af, pf = a.float(), p.float()
         assert float((af - pf).norm() / pf.norm()) <= tfa.BF16_REL_ERR
+        # and sharply, against the plain version that rounds where the kernels do
+        rf = tfa.attention_rounded(q, k, v, causal).float()
+        assert float((af - rf).norm() / rf.norm()) <= tfa.ROUNDED_REL_ERR
 
 
-def test_gqa_attention_flash_launches_the_kernel(cuda):
+@pytest.mark.parametrize("dtype,kernel,other,tol", [
+    (torch.bfloat16, "flash_attention", "flash_attention_f32", 5e-2),
+    (torch.float32, "flash_attention_f32", "flash_attention", 2e-4)])
+def test_gqa_attention_flash_launches_the_kernel(cuda, dtype, kernel, other, tol):
+    """bfloat16 (head dim 32) takes the tensor-core kernel, float32 the
+    CUDA-core one; each call launches one kernel and not the other."""
     torch.manual_seed(0)
     d, h, hkv, dh = 256, 8, 2, 32
     p = {"wq": torch.randn(d, h * dh, device=cuda) / 16,
          "wk": torch.randn(d, hkv * dh, device=cuda) / 16,
          "wv": torch.randn(d, hkv * dh, device=cuda) / 16,
          "wo": torch.randn(h * dh, d, device=cuda) / 16}
-    x = torch.randn(2, 96, d, device=cuda)
+    p = {key: w.to(dtype) for key, w in p.items()}
+    x = torch.randn(2, 96, d, device=cuda).to(dtype)
     pos = torch.arange(96, device=cuda).expand(2, 96)
     ops.reset_launches()
     a, _ = TL.gqa_attention(x, p, n_heads=h, n_kv=hkv, positions=pos, use_flash=True)
-    assert ops.launch_counts()["flash_attention"] == 1
+    counts = ops.launch_counts()
+    assert counts[kernel] == 1 and counts[other] == 0
     b, _ = TL.gqa_attention(x, p, n_heads=h, n_kv=hkv, positions=pos, use_flash=False)
-    torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol)

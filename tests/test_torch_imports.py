@@ -1,6 +1,6 @@
-"""The port stands alone: no file of `src/repro_torch/` nor `chip_smoke.py`
-imports `jax` or the reference package `repro`, and the package imports with
-JAX made unimportable."""
+"""The port stands alone: no file of `src/repro_torch/`, nor `chip_smoke.py`
+or `scripts/port_kernel_probe.py`, imports `jax` or the reference package
+`repro`, and the package imports with JAX made unimportable."""
 
 import ast
 import subprocess
@@ -10,7 +10,8 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "scripts" / "port_kernel_probe.py"]
 
 
 def _forbidden(module: str) -> bool:
