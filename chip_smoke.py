@@ -8,13 +8,22 @@ Phases (any failure exits non-zero; nothing is caught):
   1. card      — nvidia-smi name and power limit, torch/CUDA versions;
   2. build     — nvcc builds every kernel (csrc/*.cu), one nvcc per source;
                  the tensor-core flash library's SASS (cuobjdump -sass) must
-                 hold HGMMA (wgmma) and UTMALDG (TMA loads);
+                 hold HGMMA (wgmma) and UTMALDG (TMA loads), ell_combine's
+                 LDG.E.128 (16-byte loads);
   3. kernels   — each CUDA kernel against its plain PyTorch version on the
-                 card over shape sweeps (bit-equal for ell_combine, its
-                 deletion overlay (also bit-equal to the kernel on the
-                 neutralized copy), frontier_pack, min/max segment_reduce
-                 and max embedding_bag; segment_reduce sum within rtol 1e-5
-                 and identical from run to run); ell_spmm over ragged R,
+                 card over shape sweeps: ell_combine bit-equal at W in
+                 {1, 2, 3, 4, 5, 8, 12, 16, 32, 64, 128, 256}, both its
+                 16-byte and scalar variants (views 4 bytes into their
+                 storage among them); its deletion overlay bit-equal to the
+                 plain version and to the kernel on the neutralized copy;
+                 frontier_pack bit-equal; segment_reduce bit-equal to
+                 segment_reduce_ordered (its fold order) for sum, min and
+                 max, at segment lengths on each side of every tier limit,
+                 D in {1, 3, 64}, num far above E, every id out of range and
+                 E = 0, bit-equal to the plain version for min/max and for
+                 sum within rtol 1e-5 of it run in float64, identical from
+                 run to run; max
+                 embedding_bag bit-equal; ell_spmm over ragged R,
                  W in {1, 3, 32, 256}, D in {8, 10, 64, 70, 128}, float32
                  (rtol 1e-5) and bfloat16 (rtol 1.6e-2); embedding_bag sum
                  and mean (rtol 1e-5); flash_attention over ragged Sq and
@@ -30,10 +39,15 @@ Phases (any failure exits non-zero; nothing is caught):
                  every row moves `attention_rounded` by more than twice that;
   4. main path — RMAT scale 22, edge factor 16 (Graph500 a/b/c 0.57/0.19/
                  0.19, seed 1, undirected): each kernel timed at the main
-                 path's shapes, then bfs, sssp, wcc, pagerank and kcore(16)
-                 through `engine.run` with the kernel pull, counted; each is
-                 bit-equal to the torch pull (metadata, traces, iterations);
-                 bfs and sssp equal scipy's distances;
+                 path's shapes (ell_combine per slice, all 12 op pairs
+                 bit-equal there; segment_reduce at the push Combine's shape
+                 and at each slice's pull-merge shape, each bit-equal to
+                 segment_reduce_ordered), then bfs, sssp, wcc, pagerank and
+                 kcore(16) through `engine.run` with the kernel pull,
+                 counted (segment_reduce's launches split into one a push and
+                 one a slice a pull); each is bit-equal to the torch pull
+                 (metadata, traces, iterations); bfs and sssp equal scipy's
+                 distances;
   5. diameter  — grid2d(1024): bfs and sssp under fusion none/all/pushpull
                  give equal results, equal to scipy's;
   6. slice     — the kernel library's second slice at full width, through
@@ -58,8 +72,9 @@ Phases (any failure exits non-zero; nothing is caught):
                  {"ok": true, "device": {...}}.
 
 Kernel times are CUDA-event means over a run of calls. Kernels under 0.1 ms
-(frontier_pack, embedding_bag) and their library calls (torch.nonzero_static,
-F.embedding_bag) take the median of 7 event-timed batches of 50 calls
+(frontier_pack, embedding_bag, the segment_reduce merges) and their library
+calls (torch.nonzero_static, F.embedding_bag, index_add_, scatter_reduce_)
+take the median of 7 event-timed batches of 50 calls
 replayed from a CUDA graph: the card's time, without the Python function's
 host time. Beside them are logged, for kernel and library call alike, the
 median of 7 event-timed batches of 50 calls through the Python function
@@ -168,6 +183,12 @@ def abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float(diff.max()) if diff.numel() else 0.0
 
 
+def rel_max(a: torch.Tensor, exact: torch.Tensor) -> float:
+    """Largest |a - exact| / |exact| over entries, in float64."""
+    d = (a.double() - exact).abs() / exact.abs().clamp(min=1e-30)
+    return float(d.max()) if d.numel() else 0.0
+
+
 def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
     """||a - b|| / ||b|| over all entries, in float32."""
     a, b = a.float(), b.float()
@@ -203,14 +224,24 @@ def bound_ms(nbytes: float, ops: float, peak: float = F32_OPS_PER_S) -> tuple[fl
 
 
 def sweep_ell(dev, rng, ell) -> float:
+    """ell_combine bit-equal to its plain version for every op pair, over
+    widths on both variants: the 16-byte one (W % 4 == 0, aligned) and the
+    scalar one (other widths, and views that start 4 bytes in)."""
     shapes = [(8, 4, 50), (64, 16, 200), (128, 32, 1000), (24, 256, 300),
               (13, 4, 50), (37, 32, 100), (29, 256, 700), (100, 1, 60),
               (9, 3, 40), (17, 64, 90), (11, 128, 90), (5, 8, 30), (1, 2, 10),
-              (3001, 256, 5000)]
+              (40, 5, 60), (21, 12, 70), (3001, 256, 5000)]
+    unaligned = [(13, 4, 50), (37, 32, 100), (29, 256, 700), (9, 3, 40), (40, 5, 60)]
     worst = 0.0
-    for r, w, n in shapes:
-        nbr = torch.from_numpy(rng.integers(0, n + 1, size=(r, w)).astype(np.int32)).to(dev)
-        wgt = torch.from_numpy(rng.random((r, w)).astype(np.float32)).to(dev)
+    for (r, w, n), shift in [(x, 0) for x in shapes] + [(x, 1) for x in unaligned]:
+        nb = rng.integers(0, n + 1, size=r * w + shift).astype(np.int32)
+        wg = rng.random(r * w + shift).astype(np.float32)
+        # a view `shift` elements into its storage (4 bytes: not 16-aligned)
+        nbr = torch.from_numpy(nb).to(dev)[shift:].view(r, w)
+        wgt = torch.from_numpy(wg).to(dev)[shift:].view(r, w)
+        vec = ell.vector_layout(w, nbr.data_ptr(), wgt.data_ptr())
+        if vec != (w % 4 == 0 and shift == 0):
+            raise AssertionError(f"ell_combine W={w} shift={shift}: vector layout {vec}")
         v = rng.random(n + 1).astype(np.float32)
         v[rng.random(n + 1) < 0.2] = ell.BIG
         v[-1] = 0.0
@@ -221,7 +252,8 @@ def sweep_ell(dev, rng, ell) -> float:
                 b = ell.ell_combine_plain(nbr, wgt, vals, op, comb)
                 torch.cuda.synchronize()
                 if not bit_equal(a, b):
-                    raise AssertionError(f"ell_combine {op}/{comb} R={r} W={w} n={n} differs")
+                    raise AssertionError(f"ell_combine {op}/{comb} R={r} W={w} n={n} "
+                                         f"shift={shift} differs")
                 worst = max(worst, abs_err(a, b))
     return worst
 
@@ -246,29 +278,74 @@ def sweep_pack(dev, rng, fp) -> float:
     return 0.0
 
 
-def sweep_segment(dev, rng, sr) -> float:
-    cases = [(256, 4, 16, 0), (2048, 16, 64, 0), (512, 8, 10, 0),
-             (1000, 1, 50, 0), (20000, 1, 5, 0), (50, 1, 100, 0),
-             (3000, 1, 40, 3), (9000, 2, 3, 0), (0, 1, 7, 0)]
+def segment_cases(rng, sr) -> list:
+    """(E, D, ids, num) cases for segment_reduce: segment lengths on each side
+    of every tier limit (1, THREAD_SEG and one more, 32, 33, LONG_SEG and one
+    more), long ones first and last, gaps (empty segments), ids out of range
+    at both ends; num far above E; every id out of range; E = 0; and random
+    draws."""
+    edges = [1, sr.THREAD_SEG, sr.THREAD_SEG + 1, 32, 33, sr.LONG_SEG, sr.LONG_SEG + 1]
+    cases = []
+    for d in (1, 3, 64):
+        lens = edges + [int(x) for x in rng.integers(1, 70, 40)] + edges[::-1]
+        lens = [sr.LONG_SEG + 1] + lens + [5000, sr.LONG_SEG + 1]
+        seg = np.cumsum(rng.integers(1, 4, len(lens)))          # gaps of 0 .. 2
+        num = int(seg[-1]) + 3
+        ids = np.concatenate([[-5, -1], np.repeat(seg, lens), [num, num + 7]])
+        cases.append((d, ids.astype(np.int32), num))
+    sparse = np.sort(rng.choice(1_000_000, 1000, replace=False))
+    cases.append((1, np.repeat(sparse, rng.integers(1, 12, 1000)).astype(np.int32), 1_000_003))
+    cases.append((3, np.array([-3, -2, 9, 9, 12], np.int32), 9))       # all out of range
+    cases.append((1, np.full(4000, 20, np.int32), 10))                 # all past num
+    cases.append((1, np.zeros(0, np.int32), 7))                        # E = 0
+    cases.append((64, np.zeros(0, np.int32), 7))
+    for e, d, s, oob in [(256, 4, 16, 0), (2048, 16, 64, 0), (512, 8, 10, 0),
+                         (1000, 1, 50, 0), (20000, 1, 5, 0), (50, 1, 100, 0),
+                         (3000, 1, 40, 3), (9000, 2, 3, 0), (0, 1, 7, 0)]:
+        cases.append((d, np.sort(rng.integers(-oob, s + oob, size=e)).astype(np.int32), s))
+    return cases
+
+
+def check_segment(sr, vals, sid, num, what: str) -> float:
+    """segment_reduce on the card against segment_reduce_ordered (bit-equal,
+    sum, min and max) and segment_reduce_plain (bit-equal for min/max; for
+    sum within rtol 1e-5 of the plain version run in float64, since the
+    float32 plain version's `index_add_` adds in an order that changes from
+    run to run and strays by more than that on a hub of 10^5 rows); twice
+    for sum, bit-equal. Returns the worst |kernel - plain| of the sums."""
     worst = 0.0
-    for e, d, s, oob in cases:
+    for comb in ("min", "max", "sum"):
+        for fill in (None, float("inf") if comb == "min" else float("-inf")):
+            a = sr.segment_reduce_cuda(vals, sid, num, comb, fill)
+            o = sr.segment_reduce_ordered(vals, sid, num, comb, fill)
+            b = sr.segment_reduce_plain(vals, sid, num, comb, fill)
+            torch.cuda.synchronize()
+            if not bit_equal(a, o):
+                raise AssertionError(f"segment_reduce {comb} {what} differs from "
+                                     "segment_reduce_ordered")
+            if comb == "sum":
+                if not bit_equal(a, sr.segment_reduce_cuda(vals, sid, num, comb, fill)):
+                    raise AssertionError(f"segment_reduce sum {what} not deterministic")
+                exact = sr.segment_reduce_plain(vals.double(), sid, num, comb, fill)
+                torch.testing.assert_close(a.double(), exact, rtol=1e-5, atol=1e-6)
+                worst = max(worst, abs_err(a, b))
+                if what.startswith("at the") and fill is None:
+                    log(f"[4 main] segment_reduce sum {what}: largest relative error against "
+                        f"float64, kernel {rel_max(a, exact):.3g}, float32 plain version "
+                        f"{rel_max(b, exact):.3g}")
+            elif not bit_equal(a, b):
+                raise AssertionError(f"segment_reduce {comb} {what} differs from plain")
+    return worst
+
+
+def sweep_segment(dev, rng, sr) -> float:
+    worst = 0.0
+    for d, ids, num in segment_cases(rng, sr):
+        e = ids.shape[0]
         v = rng.random((e, d)).astype(np.float32)
-        ids = np.sort(rng.integers(-oob, s + oob, size=e)).astype(np.int32)
         vals = torch.from_numpy(v[:, 0] if d == 1 else v).to(dev).contiguous()
         sid = torch.from_numpy(ids).to(dev)
-        for comb in ("min", "max", "sum"):
-            for fill in (None, float("inf") if comb == "min" else float("-inf")):
-                a = sr.segment_reduce_cuda(vals, sid, s, comb, fill)
-                b = sr.segment_reduce_plain(vals, sid, s, comb, fill)
-                torch.cuda.synchronize()
-                if comb == "sum":
-                    again = sr.segment_reduce_cuda(vals, sid, s, comb, fill)
-                    if not bit_equal(a, again):
-                        raise AssertionError(f"segment_reduce sum E={e} not deterministic")
-                    torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
-                    worst = max(worst, abs_err(a, b))
-                elif not bit_equal(a, b):
-                    raise AssertionError(f"segment_reduce {comb} E={e} D={d} S={s} differs")
+        worst = max(worst, check_segment(sr, vals, sid, num, f"E={e} D={d} num={num}"))
     return worst
 
 
@@ -531,12 +608,15 @@ def slice_phase(dev, pack, ops, ell, bag, fa, L, report, err, rounded) -> dict:
                    for s, dd in zip(slices, deads)]
     ovp = lambda: [ell.ell_combine_plain(s.nbr, s.wgt, vals, "add_w", "min", dd)
                    for s, dd in zip(slices, deads)]
-    bnd = bound_ms(slots * 9 + (n + 1) * 4 + rows * 4, slots * 2)
+    # ids and flags of every slot, weights of the live ones
+    bnd = bound_ms(slots * 5 + (real - n_dead) * 4 + (n + 1) * 4 + rows * 4, (real - n_dead) * 2)
     report["ell_combine_overlay"] = dict(
         replaces="src/repro/kernels/ell_spmv.py:74",
         shape=f"{len(slices)} RMAT ELL slices, {slots} slots, add_w/min, 1 % dead",
         max_abs_err=err["ell_combine_overlay"], ms=cuda_ms(ovk, 10),
-        plain_ms=cuda_ms(ovp, 3, 1), bound_ms=bnd[0], bound_by=bnd[1], library_ms=None)
+        plain_ms=cuda_ms(ovp, 3, 1), bound_ms=bnd[0], bound_by=bnd[1],
+        bound_all_slots_ms=bound_ms(slots * 9 + (n + 1) * 4 + rows * 4, slots * 2)[0],
+        library_ms=None)
     del over, neutral, deads
 
     # -- (b) ell_spmm ---------------------------------------------------------
@@ -732,6 +812,15 @@ def main() -> int:
     log(f"[2 build] {_build.KERNELS[fa.TENSOR_CORES]} SASS: {found}")
     if not all(found.values()):
         raise AssertionError(f"the tensor-core flash kernel lacks wgmma or TMA loads: {found}")
+    sass = subprocess.run(
+        [str(Path(_build._nvcc()).parent / "cuobjdump"), "-sass",
+         str(_build._lib_path("ell_combine"))],
+        capture_output=True, text=True, check=True, timeout=120).stdout
+    wide = sass.count("LDG.E.128")
+    narrow = len(re.findall(r"LDG\.E(?:\.CONSTANT)?\s", sass))
+    log(f"[2 build] ell_combine SASS: LDG.E.128 {wide}, 32-bit LDG.E {narrow}")
+    if not wide:
+        raise AssertionError("ell_combine has no 128-bit global loads (LDG.E.128)")
 
     rng = np.random.default_rng(0)
     rounded = {}
@@ -764,15 +853,39 @@ def main() -> int:
     vals = torch.rand(n + 1, device=dev) * 64
     slots = sum(s.nbr.numel() for s in pack.slices)
     rows = sum(s.rows for s in pack.slices)
+    real = sum(int((s.nbr != n).sum()) for s in pack.slices)
+    e_err, per_slice = 0.0, []
+    for s in pack.slices:
+        r_, w_ = s.nbr.shape
+        if not ell.vector_layout(w_, s.nbr.data_ptr(), s.wgt.data_ptr()):
+            raise AssertionError(f"the ({r_}, {w_}) slice does not take the 16-byte variant")
+        for op in ell.COMPUTE_OPS:
+            for comb in ell.COMBINE_OPS:
+                a = ell.ell_combine_cuda(s.nbr, s.wgt, vals, op, comb)
+                if not bit_equal(a, ell.ell_combine_plain(s.nbr, s.wgt, vals, op, comb)):
+                    raise AssertionError(f"ell_combine {op}/{comb} differs on the ({r_}, {w_}) slice")
+        b = ell.ell_combine_plain(s.nbr, s.wgt, vals, "add_w", "min")
+        e_err = max(e_err, abs_err(ell.ell_combine_cuda(s.nbr, s.wgt, vals, "add_w", "min"), b))
+        rl = int((s.nbr != n).sum())
+        b_all = bound_ms(s.nbr.numel() * 8 + (n + 1) * 4 + r_ * 4, 2 * s.nbr.numel())
+        b_real = bound_ms(s.nbr.numel() * 4 + rl * 4 + (n + 1) * 4 + r_ * 4, 2 * rl)
+        per_slice.append(dict(
+            shape=[r_, w_], real_slots=rl,
+            ms=cuda_ms(lambda s=s: ell.ell_combine_cuda(s.nbr, s.wgt, vals, "add_w", "min"), 10),
+            bound_ms=b_real[0], bound_all_slots_ms=b_all[0]))
+        log(f"[4 main] ell_combine slice ({r_}, {w_}), {rl} real slots: "
+            f"{per_slice[-1]['ms']:.4f} ms (bound {b_real[0]:.4f} without padding weights, "
+            f"{b_all[0]:.4f} for all slots); 12 op pairs bit-equal to the plain version")
     ell_k = lambda: [ell.ell_combine_cuda(s.nbr, s.wgt, vals, "add_w", "min") for s in pack.slices]
     ell_p = lambda: [ell.ell_combine_plain(s.nbr, s.wgt, vals, "add_w", "min") for s in pack.slices]
-    e_err = max(abs_err(a, b) for a, b in zip(ell_k(), ell_p()))
-    bnd = bound_ms(slots * 8 + (n + 1) * 4 + rows * 4, slots * 2)
+    bnd = bound_ms(slots * 4 + real * 4 + (n + 1) * 4 + rows * 4, real * 2)
     report["ell_combine"] = dict(
         replaces="src/repro/kernels/ell_spmv.py:62",
+        shape=f"{len(pack.slices)} RMAT ELL slices, {slots} slots ({real} real), add_w/min",
         max_abs_err=max(e_err, err["ell_combine"]), ms=cuda_ms(ell_k, 10),
         plain_ms=cuda_ms(ell_p, 3, 1), bound_ms=bnd[0], bound_by=bnd[1],
-        library_ms=None)
+        bound_all_slots_ms=bound_ms(slots * 8 + (n + 1) * 4 + rows * 4, slots * 2)[0],
+        slices=per_slice, library_ms=None)
 
     mask = torch.rand(n, device=dev) < 0.5
     pk = lambda: fp.frontier_pack_cuda(mask, n)
@@ -797,23 +910,47 @@ def main() -> int:
         f"host enqueue, torch.nonzero {r['library_loop_ms']:.4f} ms a call with "
         f"{r['library_host_us']:.1f} us")
 
+    # segment_reduce: the push Combine's shape (E = m, num = n) ...
     sid = torch.sort(g.out.col_idx).values
     sv = torch.rand(m, device=dev)
-    sk = lambda: sr.segment_reduce_cuda(sv, sid, n, "sum")
-    sp = lambda: sr.segment_reduce_plain(sv, sid, n, "sum")
-    a, b = sk(), sp()
-    torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
-    if not bit_equal(a, sk()):
-        raise AssertionError("segment_reduce sum not deterministic at the main path's shape")
-    lib_out = torch.zeros(n, device=dev)
+    s_err = check_segment(sr, sv, sid, n, "at the push shape")
     sid64 = sid.long()
+    lib_out = torch.zeros(n, device=dev)
     bnd = bound_ms(m * 8 + n * 4, m)
     report["segment_reduce"] = dict(
         replaces="src/repro/kernels/segment_reduce.py:20",
-        max_abs_err=max(err["segment_reduce"], abs_err(a, b)),
-        ms=cuda_ms(sk), plain_ms=cuda_ms(sp, 5), bound_ms=bnd[0], bound_by=bnd[1],
-        library_ms=cuda_ms(lambda: lib_out.index_add_(0, sid64, sv), 5))
-    del sid, sv, sid64, lib_out, vals, mask, a, b
+        shape=f"push Combine: E={m} sorted ids, num={n}, sum",
+        max_abs_err=max(err["segment_reduce"], s_err),
+        ms=cuda_ms(lambda: sr.segment_reduce_cuda(sv, sid, n, "sum")),
+        plain_ms=cuda_ms(lambda: sr.segment_reduce_plain(sv, sid, n, "sum"), 5),
+        bound_ms=bnd[0], bound_by=bnd[1],
+        library_ms=cuda_ms(lambda: lib_out.index_add_(0, sid64, sv), 5),
+        library_min_ms=cuda_ms(lambda: lib_out.scatter_reduce_(0, sid64, sv, "amin"), 5))
+    del sid, sv, sid64, lib_out
+    # ... and each pull merge's (E = the slice's rows, num = n + 1)
+    merges = []
+    lib_out = torch.zeros(n + 1, device=dev)
+    for s in pack.slices:
+        part = torch.rand(s.rows, device=dev)
+        what = f"at the merge shape E={s.rows}"
+        s_err = max(s_err, check_segment(sr, part, s.row_id, n + 1, what))
+        rid64 = s.row_id.long()
+        bnd = bound_ms(s.rows * 8 + (n + 1) * 4, s.rows)
+        merges.append(dict(
+            rows=s.rows, ms=graph_ms(lambda: sr.segment_reduce_cuda(part, s.row_id, n + 1, "sum")),
+            plain_ms=cuda_ms(lambda: sr.segment_reduce_plain(part, s.row_id, n + 1, "sum"), 5),
+            bound_ms=bnd[0],
+            library_ms=graph_ms(lambda: lib_out.index_add_(0, rid64, part)),
+            library_min_ms=graph_ms(lambda: lib_out.scatter_reduce_(0, rid64, part, "amin")),
+            loop_ms=cuda_ms(lambda: sr.segment_reduce_cuda(part, s.row_id, n + 1, "sum"), 50, 5, 7)))
+        r = merges[-1]
+        log(f"[4 main] segment_reduce merge E={s.rows} num={n + 1}: card {r['ms']:.4f} ms "
+            f"(CUDA graph; {r['loop_ms']:.4f} through Python), bound {r['bound_ms']:.4f}, plain "
+            f"{r['plain_ms']:.4f}, index_add_ {r['library_ms']:.4f}, scatter_reduce_ amin "
+            f"{r['library_min_ms']:.4f}; bit-equal to segment_reduce_ordered")
+    report["segment_reduce"].update(merges=merges, max_abs_err=max(
+        report["segment_reduce"]["max_abs_err"], s_err))
+    del lib_out, part, rid64, vals, mask
     for k, r in report.items():
         log(f"[4 main] {k}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, bound "
             f"{r['bound_ms']:.4f} by {r['bound_by']}, library {r['library_ms']})")
@@ -832,6 +969,13 @@ def main() -> int:
         results[name] = timed_run(E, p, g, pack, cfg_k)
     launches = ops.launch_counts()
     log(f"[4 main] launches on the main path: {launches}")
+    pushes = sum(int(results[k][1]["push_iters"]) for k in results)
+    pulls = sum(int(results[k][1]["pull_iters"]) for k in results)
+    if launches["segment_reduce"] != pushes + len(pack.slices) * pulls:
+        raise AssertionError(f"segment_reduce launched {launches['segment_reduce']} times for "
+                             f"{pushes} pushes and {pulls} pulls")
+    report["segment_reduce"].update(launches_push=pushes,
+                                    launches_merge=len(pack.slices) * pulls)
 
     for name, p in progs:
         mk, sk_, tk = results[name]

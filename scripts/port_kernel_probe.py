@@ -4,6 +4,8 @@
     python3 scripts/port_kernel_probe.py tiles
     python3 scripts/port_kernel_probe.py pack
     python3 scripts/port_kernel_probe.py wrappers [--root DIR]
+    python3 scripts/port_kernel_probe.py combine [--root DIR] [--parent DIR]
+    python3 scripts/port_kernel_probe.py tiers
 
 tiles    — builds `csrc/flash_attention_wgmma.cu` with -DFLASH_WGMMA_PROBE
            into `build/probe/` (the same kernel, whose kv-tile width and
@@ -27,6 +29,26 @@ wrappers — the two kernels under 0.1 ms, `frontier_pack` (n = 2^22,
            from the `repro_torch` under DIR/src (default: this checkout), so
            that an earlier commit unpacked into DIR is timed in the same way;
            run it for both, in the order parent, change, change, parent.
+combine  — the engine's two Combine kernels at the main path's shapes
+           (RMAT scale 22, edge factor 16, seed 1, undirected):
+           `segment_reduce` at the push Combine's shape (E = m sorted ids,
+           num = n, sum), at a push whose frontier covers 1 % of the edge
+           lanes (the rest hold the sentinel n, as in `engine._push_step`),
+           and at each ELL slice's pull-merge shape (E = the slice's rows,
+           num = n + 1); `ell_combine` on each slice (add_w / min). Times
+           are CUDA-event means (the merges: replays of a CUDA graph of 50
+           calls, median of 7). The kernels come from the `repro_torch`
+           under DIR/src; with --parent, the tree under that DIR is timed in
+           the same process and on the same inputs, in turns (parent,
+           change, change, parent), its ell_combine held bit-equal and its
+           segment_reduce sums within rtol 1e-5 of this tree's. Last, the
+           device time of each kernel of this tree's push calls
+           (torch.profiler).
+tiers    — builds `csrc/segment_reduce.cu` with other thread-tier limits
+           (-DSEG_THREAD_SEG) and chunk depths (-DSEG_UNROLL) into
+           `build/probe/`, holds each bit-equal to `segment_reduce_ordered`
+           at its limit (sum, min) at RMAT-22's push shape and one merge,
+           and times each there (CUDA events; the merge by CUDA graph).
 
 It fails where there is no GPU or a variant does not build or disagrees.
 """
@@ -189,20 +211,183 @@ def wrappers(dev, root: Path) -> None:
             f"{cuda_ms(fn, 50, 5, 7):.4f} ms a call, host enqueue {host_us(fn):.1f} us a call")
 
 
+def load_kernels(root: Path):
+    """`segment_reduce` and `ell_spmv` of the `repro_torch` under root/src,
+    imported afresh (an earlier tree's modules stay alive through the
+    functions returned; each tree builds into its own build/kernels)."""
+    for name in [k for k in sys.modules if k.split(".")[0] == "repro_torch"]:
+        del sys.modules[name]
+    try:
+        repro_torch = import_port(root)
+        from repro_torch.kernels import ell_spmv, segment_reduce
+    finally:
+        sys.path[:] = [p for p in sys.path if p != str(root / "src")]
+    log(f"[combine] tree {root}: {repro_torch.__file__}")
+    return segment_reduce, ell_spmv
+
+
+def combine(dev, root: Path, parent) -> None:
+    trees = []
+    if parent is not None:
+        trees.append(("parent", *load_kernels(parent)))
+    trees.append(("change", *load_kernels(root)))     # its modules stay imported
+    from repro_torch.graph import generators as G
+    from repro_torch.graph import pack_ell
+    from repro_torch.graph.csr import from_edges
+
+    src, dst, w = G.rmat_edges(22, 16, 0.57, 0.19, 0.19, seed=1)
+    g = from_edges(src, dst, 1 << 22, w, directed=False, device=dev)
+    del src, dst, w
+    pack = pack_ell(g.inc)
+    n, m = g.n_nodes, g.n_edges
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(14)
+    sid = torch.sort(g.out.col_idx).values
+    sv = torch.rand(m, device=dev, generator=gen)
+    live = torch.rand(m, device=dev, generator=gen) < 0.01
+    sparse = torch.sort(torch.where(live, g.out.col_idx, n)).values
+    vals = torch.rand(n + 1, device=dev, generator=gen) * 64
+    parts = [torch.rand(s.rows, device=dev, generator=gen) for s in pack.slices]
+    del g
+    log(f"[combine] RMAT 22: n={n} m={m}, {int(live.sum())} live lanes in the sparse push, "
+        f"slices {[tuple(s.nbr.shape) for s in pack.slices]}")
+    ref = {}
+    order = trees if parent is None else [trees[0], trees[1], trees[1], trees[0]]
+    for label, sr, ell in order:
+        calls = {"push": lambda: sr.segment_reduce_cuda(sv, sid, n, "sum"),
+                 "push 1 %": lambda: sr.segment_reduce_cuda(sv, sparse, n, "sum")}
+        for s, p in zip(pack.slices, parts):
+            calls[f"merge E={s.rows}"] = (lambda s=s, p=p:
+                                          sr.segment_reduce_cuda(p, s.row_id, n + 1, "sum"))
+        for s in pack.slices:
+            calls[f"ell {tuple(s.nbr.shape)}"] = (lambda s=s:
+                                                  ell.ell_combine_cuda(s.nbr, s.wgt, vals,
+                                                                       "add_w", "min"))
+        for what, fn in calls.items():
+            got = fn()
+            if what not in ref:
+                ref[what] = got
+            elif what.startswith("ell"):
+                if not torch.equal(got.view(torch.int32), ref[what].view(torch.int32)):
+                    raise AssertionError(f"{label}: {what} differs between the trees")
+            else:
+                torch.testing.assert_close(got, ref[what], rtol=1e-5, atol=1e-6)
+            ms = graph_ms(fn) if what.startswith("merge") else cuda_ms(fn, 20, 3, 3)
+            log(f"[combine] {label}: {what}: {ms:.4f} ms")
+    # the change's push call, split by kernel (torch.profiler device time)
+    from torch.profiler import ProfilerActivity, profile
+
+    sr = trees[-1][1]
+    for what, ids in (("push", sid), ("push 1 %", sparse)):
+        for _ in range(3):
+            sr.segment_reduce_cuda(sv, ids, n, "sum")
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                sr.segment_reduce_cuda(sv, ids, n, "sum")
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            us = getattr(e, "self_device_time_total", 0) or 0
+            if us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+                log(f"[combine] change: {what}: {e.key[:60]} {us / 10:.2f} us a call")
+
+
+#: (thread-tier limit, sub-tiles a chunk); the first ships
+TIER_VARIANTS = [(8, 4), (4, 4), (16, 4), (8, 8), (8, 2)]
+
+
+def tiers(dev) -> None:
+    from repro_torch.graph import generators as G
+    from repro_torch.graph import pack_ell
+    from repro_torch.graph.csr import from_edges
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import segment_reduce as sr
+
+    out = _build.BUILD_DIR.parent / "probe"
+    out.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    for t, u in TIER_VARIANTS:
+        lib = out / f"libsegment_reduce_t{t}_u{u}.so"
+        jobs[(t, u)] = (lib, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, f"-DSEG_THREAD_SEG={t}", f"-DSEG_UNROLL={u}",
+             "-o", str(lib), str(_build.CSRC / "segment_reduce.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    fns = {}
+    for key, (lib, proc) in jobs.items():
+        report = proc.communicate(timeout=600)[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"variant {key} failed to build:\n{report[-3000:]}")
+        regs = re.findall(r"Used (\d+) registers", report)
+        log(f"[tiers] thread limit {key[0]}, {key[1]} sub-tiles: registers {sorted(set(regs))}")
+        fn = ctypes.CDLL(str(lib)).segment_reduce_launch
+        fn.argtypes = list(sr._ARGTYPES)
+        fn.restype = ctypes.c_int
+        fns[key] = fn
+
+    def run(fn, vals, ids, num, combine):
+        e = vals.shape[0]
+        o = torch.empty(num, device=dev)
+        lst = torch.empty(e // (sr.LONG_SEG + 1) + 1, dtype=torch.int32, device=dev)
+        st = torch.empty(3, dtype=torch.int32, device=dev)
+        _build.check(fn(vals.data_ptr(), ids.data_ptr(), e, 1, num,
+                        sr.COMBINE_OPS[combine], sr.identity(combine), o.data_ptr(),
+                        lst.data_ptr(), st.data_ptr(), _build.stream_of(dev)), "variant")
+        return o
+
+    src, dst, w = G.rmat_edges(22, 16, 0.57, 0.19, 0.19, seed=1)
+    g = from_edges(src, dst, 1 << 22, w, directed=False, device=dev)
+    del src, dst, w
+    pack = pack_ell(g.inc)
+    n, m = g.n_nodes, g.n_edges
+    sid = torch.sort(g.out.col_idx).values
+    del g
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(14)
+    sv = torch.rand(m, device=dev, generator=gen)
+    big = max(pack.slices, key=lambda s: s.rows)
+    part = torch.rand(big.rows, device=dev, generator=gen)
+    shipped = sr.THREAD_SEG
+    for (t, u), fn in fns.items():
+        sr.THREAD_SEG = t                        # the model's tier limit
+        try:
+            for vals, ids, num in ((sv, sid, n), (part, big.row_id, n + 1)):
+                for combine in ("sum", "min"):
+                    a = run(fn, vals, ids, num, combine)
+                    o = sr.segment_reduce_ordered(vals, ids, num, combine)
+                    if not torch.equal(a.view(torch.int32), o.view(torch.int32)):
+                        raise AssertionError(f"variant {(t, u)} {combine} differs from "
+                                             "segment_reduce_ordered")
+        finally:
+            sr.THREAD_SEG = shipped
+    for rnd in range(2):
+        for (t, u), fn in fns.items():
+            push = cuda_ms(lambda: run(fn, sv, sid, n, "sum"), 20, 3, 3)
+            merge = graph_ms(lambda: run(fn, part, big.row_id, n + 1, "sum"))
+            log(f"[tiers] round {rnd}: thread limit {t}, {u} sub-tiles: push {push:.4f} ms, "
+                f"merge E={big.rows} {merge:.4f} ms")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("probe", choices=("tiles", "pack", "wrappers"))
+    ap.add_argument("probe", choices=("tiles", "pack", "wrappers", "combine", "tiers"))
     ap.add_argument("--root", type=Path, default=ROOT,
-                    help="checkout whose src/repro_torch the wrappers probe times")
+                    help="checkout whose src/repro_torch the wrappers and combine probes time")
+    ap.add_argument("--parent", type=Path, default=None,
+                    help="combine: also time the tree under this checkout, in turns")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("port_kernel_probe: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
-    import_port(args.root if args.probe == "wrappers" else ROOT)
     dev = torch.device("cuda")
     log(f"[card] {card_line()}")
+    if args.probe == "combine":
+        combine(dev, args.root, args.parent)
+        return 0
+    import_port(args.root if args.probe == "wrappers" else ROOT)
     if args.probe == "tiles":
         flash_tiles(dev)
+    elif args.probe == "tiers":
+        tiers(dev)
     elif args.probe == "pack":
         pack_breakdown(dev)
     else:

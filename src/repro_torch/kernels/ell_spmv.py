@@ -14,7 +14,10 @@ F (n+1, D):
     out[r, :] = SUM_j w'[r, j] * F[nbr[r, j], :],   w' = 0 on sentinel slots
 
 The CUDA kernel is `csrc/ell_combine.cu`; its header says what bounds it on
-the H100 and how its design answers that. Where the Pallas kernel took any
+the H100 and how its design answers that. It has a 16-byte vector variant,
+taken where `vector_layout` allows it, and a scalar one for other widths
+and unaligned views; `ell_combine_lanes_model` folds a row in the vector
+variant's lane order. Where the Pallas kernel took any
 traced Compute function, the CUDA template is stamped per named op — the
 four the catalog uses (`COMPUTE_OPS`); an `ACCProgram` declares its op in
 `kernel_compute`. The row reduction is the power-of-two halving tree of
@@ -91,6 +94,51 @@ def halving_tree(vals: torch.Tensor, axis: int, combine: str) -> torch.Tensor:
     return vals.squeeze(axis)
 
 
+def vector_layout(width: int, nbr_ptr: int, wgt_ptr: int,
+                  dead_ptr: Optional[int] = None) -> bool:
+    """Whether `ell_combine`'s 16-byte variant takes a slice: W % 4 == 0, nbr
+    and wgt 16-byte aligned, the overlay mask (if any) 4-byte aligned. Every
+    slice `pack_ell` makes qualifies; other widths and unaligned views take
+    the scalar variant."""
+    return (width % 4 == 0 and nbr_ptr % 16 == 0 and wgt_ptr % 16 == 0
+            and (dead_ptr is None or dead_ptr % 4 == 0))
+
+
+def vector_lanes(width: int) -> tuple[int, int]:
+    """(G, V) of the vector variant for a slice of `width` slots: G lanes a
+    row, V 16-byte vectors a lane, 4 * G * V = the padded width p >= 4."""
+    p = max(1 << max(width - 1, 0).bit_length(), 4)
+    lanes = min(p // 4, 32)
+    return lanes, p // (4 * lanes)
+
+
+def ell_combine_lanes_model(upd: torch.Tensor, combine: str) -> torch.Tensor:
+    """Row reduce of per-slot values (R, W) in the vector variant's order:
+    pad to p with the identity; lane l holds slots v * 4G + 4l + i (vector
+    v < V, i < 4); pair the two vectors of a lane (V = 2, the level
+    k + p/2), then lanes l and l + off for off = G/2 .. 1 (the shuffles),
+    then in-lane (k, k + 2) and (k, k + 1). The same tree as `halving_tree`,
+    written in the kernel's layout."""
+    r, w = upd.shape
+    lanes, vecs = vector_lanes(w)
+    p = 4 * lanes * vecs
+    ident = _IDENT[combine]
+    pair = _PAIR[combine]
+    if p != w:
+        pad = torch.full((r, p - w), ident, dtype=upd.dtype, device=upd.device)
+        upd = torch.cat([upd, pad], dim=1)
+    a = upd.reshape(r, vecs, lanes, 4)
+    if vecs == 2:
+        a = pair(a[:, :1], a[:, 1:])
+    a = a[:, 0]                                                  # (R, G, 4)
+    off = lanes // 2
+    while off >= 1:                      # lane 0 ends with lanes 0 .. off-1
+        a = pair(a[:, :off], a[:, off:2 * off])
+        off //= 2
+    a = a[:, 0]                                                  # (R, 4)
+    return pair(pair(a[:, 0], a[:, 2]), pair(a[:, 1], a[:, 3]))
+
+
 def ell_combine_plain(nbr: torch.Tensor, wgt: torch.Tensor, vals: torch.Tensor,
                       compute: str, combine: str,
                       dead: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -123,7 +171,7 @@ def _dead_int8(dead: torch.Tensor) -> torch.Tensor:
 
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
 
 
 def ell_combine_cuda(nbr: torch.Tensor, wgt: torch.Tensor, vals: torch.Tensor,
@@ -149,11 +197,12 @@ def ell_combine_cuda(nbr: torch.Tensor, wgt: torch.Tensor, vals: torch.Tensor,
         dead = _dead_int8(dead)
         p_dead = _build.require(dead, "dead", torch.int8, 2, dev)
     out = torch.empty((r,), dtype=torch.float32, device=dev)
+    vec = vector_layout(w, p_nbr, p_wgt, p_dead)
     fn = _build.entry("ell_combine", "ell_combine_launch", _ARGTYPES)
     with _build.device_guard(dev):
         err = fn(p_nbr, p_wgt, p_dead, p_vals, out.data_ptr(), r, w,
                  vals.shape[0] - 1, COMPUTE_OPS[compute], COMBINE_OPS[combine],
-                 _build.stream_of(dev))
+                 int(vec), _build.stream_of(dev))
     _build.check(err, "ell_combine")
     _build.LAUNCHES["ell_combine" if dead is None else "ell_combine_overlay"] += 1
     return out

@@ -106,6 +106,85 @@ def test_segment_reduce_matches_plain(cuda, combine, d):
         assert torch.equal(a, b)
 
 
+TIER_EDGES = [1, tsr.THREAD_SEG, tsr.THREAD_SEG + 1, 32, 33, tsr.LONG_SEG, tsr.LONG_SEG + 1]
+
+
+def _tier_case(d, seed):
+    """Sorted ids with segments on each side of every tier limit (long ones
+    first and last), gaps and out-of-range ids at both ends."""
+    rng = np.random.default_rng(seed)
+    lens = [tsr.LONG_SEG + 1] + TIER_EDGES + [int(x) for x in rng.integers(1, 70, 40)] \
+        + TIER_EDGES[::-1] + [5000, tsr.LONG_SEG + 1]
+    seg = np.cumsum(rng.integers(1, 4, len(lens)))
+    num = int(seg[-1]) + 3
+    ids = np.concatenate([[-4, -1], np.repeat(seg, lens), [num, num + 2]]).astype(np.int32)
+    vals = rng.random((ids.shape[0], d)).astype(np.float32)
+    return (vals[:, 0] if d == 1 else vals), ids, num
+
+
+def _check_against_ordered(vals, sid, num):
+    for combine in ("sum", "min", "max"):
+        a = tsr.segment_reduce_cuda(vals, sid, num, combine)
+        o = tsr.segment_reduce_ordered(vals, sid, num, combine)
+        assert torch.equal(_bits(a), _bits(o)), combine
+        assert torch.equal(_bits(a), _bits(tsr.segment_reduce_cuda(vals, sid, num, combine)))
+        if combine == "sum":     # float64: index_add_'s float32 order varies
+            b = tsr.segment_reduce_plain(vals.double(), sid, num, combine)
+            torch.testing.assert_close(a.double(), b, rtol=1e-5, atol=1e-6)
+        else:
+            b = tsr.segment_reduce_plain(vals, sid, num, combine)
+            assert torch.equal(_bits(a), _bits(b)), combine
+
+
+@pytest.mark.parametrize("d", [1, 3, 64])
+def test_segment_reduce_bit_equal_to_ordered_at_tier_edges(cuda, d):
+    vals, ids, num = _tier_case(d, seed=10 + d)
+    _check_against_ordered(torch.from_numpy(vals).to(cuda), torch.from_numpy(ids).to(cuda), num)
+
+
+@pytest.mark.parametrize("case", ["num_far_above_e", "all_out_of_range", "all_past_num",
+                                  "e_zero", "d_gt_1_empty", "one_long_segment"])
+def test_segment_reduce_bit_equal_to_ordered_edge_cases(cuda, case):
+    rng = np.random.default_rng(5)
+    d = 1
+    if case == "num_far_above_e":
+        ids = np.repeat(np.sort(rng.choice(1_000_000, 1000, replace=False)),
+                        rng.integers(1, 12, 1000))
+        num = 1_000_003
+    elif case == "all_out_of_range":
+        ids, num, d = np.array([-3, -2, 9, 9, 12]), 9, 3
+    elif case == "all_past_num":
+        ids, num = np.full(4000, 20), 10
+    elif case == "one_long_segment":
+        ids, num = np.full(100_000, 2), 5
+    else:
+        ids, num, d = np.zeros(0), 7, (1 if case == "e_zero" else 64)
+    v = rng.random((len(ids), d)).astype(np.float32)
+    vals = torch.from_numpy(v[:, 0] if d == 1 else v).to(cuda)
+    _check_against_ordered(vals, torch.from_numpy(ids.astype(np.int32)).to(cuda), num)
+
+
+@pytest.mark.parametrize("w,shift", [(4, 1), (32, 1), (256, 1), (3, 1), (5, 0), (12, 0),
+                                     (32, 2), (256, 3)])
+def test_ell_combine_vector_and_scalar_variants_bit_equal_to_plain(cuda, w, shift):
+    """W % 4 == 0 on an aligned slice takes the 16-byte variant, a view
+    `shift` elements into its storage the scalar one; both are bit-equal."""
+    r, n = 45, 300
+    rng = np.random.default_rng(w + shift)
+    nbr = torch.from_numpy(rng.integers(0, n + 1, r * w + shift).astype(np.int32)).to(cuda)
+    wgt = torch.from_numpy(rng.random(r * w + shift).astype(np.float32)).to(cuda)
+    nbr, wgt = nbr[shift:].view(r, w), wgt[shift:].view(r, w)
+    assert tell.vector_layout(w, nbr.data_ptr(), wgt.data_ptr()) is (w % 4 == 0 and shift == 0)
+    v = rng.random(n + 1).astype(np.float32)
+    v[::7] = tell.BIG
+    vals = torch.from_numpy(v).to(cuda)
+    for op in tell.COMPUTE_OPS:
+        for comb in tell.COMBINE_OPS:
+            a = tell.ell_combine_cuda(nbr, wgt, vals, op, comb)
+            b = tell.ell_combine_plain(nbr, wgt, vals, op, comb)
+            assert torch.equal(_bits(a), _bits(b)), (op, comb)
+
+
 @pytest.mark.parametrize("name", ["bfs", "sssp", "wcc", "pagerank", "kcore", "bp"])
 def test_kernel_pull_bit_equal_to_torch_pull(cuda, name):
     g = G.rmat(12, 16, seed=1, device=cuda)

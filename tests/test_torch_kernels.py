@@ -165,3 +165,161 @@ def test_library_name_covers_the_shared_headers(tmp_path, monkeypatch):
     (tmp_path / "h.cuh").write_text("// v2\n")
     assert all(_build._lib_path(n) != p for n, p in before.items())
     assert all(_build._lib_path(n).parent == _build.BUILD_DIR for n in before)
+
+
+# ---------------------------------------------------------------------------
+# segment_reduce_ordered (the CUDA kernel's fold order) and the ell_combine
+# lane layout, on the CPU
+# ---------------------------------------------------------------------------
+
+TIER_EDGES = [1, tsr.THREAD_SEG, tsr.THREAD_SEG + 1, 32, 33, tsr.LONG_SEG, tsr.LONG_SEG + 1]
+
+
+def _tier_case(d, seed):
+    """Sorted ids with segments on each side of every tier limit, gaps
+    (empty segments) and out-of-range ids at both ends; values in [0, 1)."""
+    rng = np.random.default_rng(seed)
+    lens = [tsr.LONG_SEG + 1] + TIER_EDGES + [int(x) for x in rng.integers(1, 40, 12)] \
+        + TIER_EDGES[::-1]
+    seg = np.cumsum(rng.integers(1, 4, len(lens)))
+    num = int(seg[-1]) + 3
+    ids = np.concatenate([[-4, -1], np.repeat(seg, lens), [num, num + 2]]).astype(np.int32)
+    vals = rng.random((ids.shape[0], d)).astype(np.float32)
+    return (vals[:, 0] if d == 1 else vals), ids, num
+
+
+def _pallas_segment(vals, ids, num, combine):
+    """The JAX package's Pallas kernel in interpret mode (E padded to its
+    256-row tiles with ids past the end, which drop)."""
+    v2 = vals.reshape(vals.shape[0], -1)
+    pad = (-v2.shape[0]) % 256
+    v2 = np.concatenate([v2, np.zeros((pad, v2.shape[1]), np.float32)])
+    ids = np.concatenate([ids, np.full(pad, num, np.int32)])
+    out = jsr.segment_reduce(jnp.asarray(v2), jnp.asarray(ids), num_segments=num,
+                             combine=combine, tile_edges=256, interpret=True)
+    return np.asarray(out).reshape((num,) + vals.shape[1:])
+
+
+@pytest.mark.parametrize("d", [1, 3, 64])
+@pytest.mark.parametrize("combine", ["sum", "min", "max"])
+def test_segment_reduce_ordered_matches_plain_pallas_and_ref(d, combine):
+    vals, ids, num = _tier_case(d, seed=d)
+    o = tsr.segment_reduce_ordered(torch.from_numpy(vals), torch.from_numpy(ids), num,
+                                   combine).numpy()
+    p = tsr.segment_reduce_plain(torch.from_numpy(vals), torch.from_numpy(ids), num,
+                                 combine).numpy()
+    a = _pallas_segment(vals, ids, num, combine)
+    ok = (ids >= 0) & (ids < num)
+    r = np.asarray(ref.segment_reduce_ref(jnp.asarray(vals[ok]), jnp.asarray(ids[ok]), num,
+                                          combine))
+    hit = np.isin(np.arange(num), ids)
+    if combine == "sum":
+        np.testing.assert_allclose(o, p, rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(o, a, rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(o[hit], r[hit], rtol=1e-5, atol=1e-6)
+    else:
+        assert np.array_equal(o, p) and np.array_equal(o, a)
+        assert np.array_equal(o[hit], r[hit])
+    assert np.all(o[~hit] == tell.identity(combine))
+
+
+@pytest.mark.parametrize("case", ["num_far_above_e", "all_out_of_range", "e_zero", "d_gt_1_empty"])
+def test_segment_reduce_ordered_edge_cases(case):
+    rng = np.random.default_rng(3)
+    if case == "num_far_above_e":
+        ids = np.repeat(np.sort(rng.choice(100_000, 60, replace=False)), 3).astype(np.int32)
+        num, d = 100_003, 1
+    elif case == "all_out_of_range":
+        ids, num, d = np.array([-3, -2, 9, 9, 12], np.int32), 9, 3
+    else:
+        ids, num, d = np.zeros(0, np.int32), 7, (1 if case == "e_zero" else 64)
+    v = rng.random((ids.shape[0], d)).astype(np.float32)
+    vals = torch.from_numpy(v[:, 0] if d == 1 else v)
+    sid = torch.from_numpy(ids)
+    for combine in ("sum", "min", "max"):
+        o = tsr.segment_reduce_ordered(vals, sid, num, combine, fill=-7.0)
+        p = tsr.segment_reduce_plain(vals, sid, num, combine, fill=-7.0)
+        assert o.shape == p.shape == (num,) + tuple(vals.shape[1:])
+        if combine == "sum":
+            torch.testing.assert_close(o, p, rtol=1e-5, atol=1e-6)
+        else:
+            assert torch.equal(o, p)
+
+
+@pytest.mark.parametrize("length,d", [(1, 1), (tsr.THREAD_SEG, 1), (tsr.THREAD_SEG + 1, 1),
+                                      (33, 1), (tsr.LONG_SEG + 1, 1), (40, 3),
+                                      (tsr.LONG_SEG + 1, 3)])
+def test_segment_reduce_ordered_folds_in_the_kernels_order(length, d):
+    """One segment, written out by hand in each tier's order: a left fold
+    (thread tier; every D > 1 segment up to LONG_SEG), lanes of a warp then
+    its shuffle tree, threads of a block then the warp and block trees, or
+    warps of a block then a tree over them (D > 1)."""
+    rng = np.random.default_rng(length)
+    v = torch.from_numpy((rng.random((length, d)) * 10 ** rng.uniform(-3, 3, (length, d)))
+                         .astype(np.float32))
+    got = tsr.segment_reduce_ordered(v if d > 1 else v[:, 0], torch.zeros(length,
+                                     dtype=torch.int32), 1, "sum").reshape(d)
+
+    def lanes(p):          # lane l folds rows l, l + p, ... from 0.0
+        acc = torch.zeros(p, d)
+        for r in range(length):
+            acc[r % p] = acc[r % p] + v[r]
+        return acc
+
+    if d == 1 and length <= tsr.THREAD_SEG or d > 1 and length <= tsr.LONG_SEG:
+        want = lanes(1)[0]
+    elif d == 1 and length <= tsr.LONG_SEG:
+        want = tell.halving_tree(lanes(32), 0, "sum")
+    elif d == 1:
+        warps = tell.halving_tree(lanes(256).reshape(8, 32, d), 1, "sum")
+        want = tell.halving_tree(warps, 0, "sum")
+    else:
+        want = tell.halving_tree(lanes(8), 0, "sum")
+    assert torch.equal(got.view(torch.int32), want.reshape(d).view(torch.int32))
+
+
+@pytest.mark.parametrize("w", [1, 3, 4, 5, 32, 256])
+@pytest.mark.parametrize("combine", ["sum", "min", "max"])
+def test_ell_combine_lanes_model_equals_halving_tree(w, combine):
+    """The 16-byte variant's layout (lane l holds slots 4l .. 4l + 3; two
+    vectors a lane at W = 256) folds in the halving tree's order: bit-equal
+    for sums, on values of many magnitudes and both signs."""
+    rng = np.random.default_rng(w)
+    x = (rng.standard_normal((57, w)) * 10 ** rng.uniform(-4, 4, (57, w))).astype(np.float32)
+    x[rng.random((57, w)) < 0.3] = tell.identity(combine)
+    upd = torch.from_numpy(x)
+    a = tell.ell_combine_lanes_model(upd, combine)
+    b = tell.halving_tree(upd, 1, combine)
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("w,lanes", [(1, (1, 1)), (3, (1, 1)), (4, (1, 1)), (5, (2, 1)),
+                                     (32, (8, 1)), (64, (16, 1)), (128, (32, 1)),
+                                     (256, (32, 2))])
+def test_vector_lanes_of_each_width(w, lanes):
+    """(G lanes a row, V vectors a lane): four rows a warp at W = 32."""
+    assert tell.vector_lanes(w) == lanes
+
+
+@pytest.mark.parametrize("w,nbr_off,wgt_off,dead_off,vector", [
+    (4, 0, 0, None, True), (32, 0, 0, None, True), (256, 0, 0, 0, True),
+    (32, 0, 0, 4, True), (32, 0, 0, 2, False), (32, 4, 0, None, False),
+    (256, 0, 8, None, False), (1, 0, 0, None, False), (3, 0, 0, None, False),
+    (5, 0, 0, None, False), (12, 0, 0, None, True)])
+def test_vector_variant_is_a_function_of_width_and_alignment(w, nbr_off, wgt_off,
+                                                             dead_off, vector):
+    base = 1 << 20
+    dead = None if dead_off is None else base + dead_off
+    assert tell.vector_layout(w, base + nbr_off, base + wgt_off, dead) is vector
+
+
+def test_packed_slices_take_the_vector_variant():
+    """pack_ell's slices (W = 4, 32, 256) are fresh allocations: all qualify."""
+    from repro_torch.graph import generators as TG
+    from repro_torch.graph import pack_ell as t_pack_ell
+
+    g = TG.rmat(10, 16, seed=1, device="cpu")
+    pack = t_pack_ell(g.inc)
+    assert {s.nbr.shape[1] for s in pack.slices} <= {4, 32, 256}
+    for s in pack.slices:
+        assert tell.vector_layout(s.nbr.shape[1], s.nbr.data_ptr(), s.wgt.data_ptr())
