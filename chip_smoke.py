@@ -7,9 +7,12 @@
 Phases (any failure exits non-zero; nothing is caught):
   1. card      — nvidia-smi name and power limit, torch/CUDA versions;
   2. build     — nvcc builds every kernel (csrc/*.cu), one nvcc per source;
-                 the tensor-core flash library's SASS (cuobjdump -sass) must
-                 hold HGMMA (wgmma) and UTMALDG (TMA loads), ell_combine's
-                 LDG.E.128 (16-byte loads);
+                 the wgmma flash library's SASS (cuobjdump -sass) must hold
+                 HGMMA (wgmma) and UTMALDG (TMA loads), the TF32 flash
+                 library's TF32 tensor-core instructions (HMMA...TF32),
+                 ell_combine's and ell_spmm's LDG.E.128 (16-byte loads);
+                 registers and spills of the TF32 flash kernel and ell_spmm
+                 (ptxas -v), the main path's instances by name;
   3. kernels   — each CUDA kernel against its plain PyTorch version on the
                  card over shape sweeps: ell_combine bit-equal at W in
                  {1, 2, 3, 4, 5, 8, 12, 16, 32, 64, 128, 256}, both its
@@ -24,15 +27,22 @@ Phases (any failure exits non-zero; nothing is caught):
                  sum within rtol 1e-5 of it run in float64, identical from
                  run to run; max
                  embedding_bag bit-equal; ell_spmm over ragged R,
-                 W in {1, 3, 32, 256}, D in {8, 10, 64, 70, 128}, float32
-                 (rtol 1e-5) and bfloat16 (rtol 1.6e-2); embedding_bag sum
+                 W in {1, 3, 4, 8, 32, 256}, D in {8, 10, 64, 70, 128}, float32
+                 (rtol 1e-5) and bfloat16 (rtol 1.6e-2), with sentinels
+                 anywhere in a row (a slice with none live among them), on
+                 each layout `spmm_layout` picks (views 4 bytes into their
+                 storage among them), each call repeated bit for bit;
+                 embedding_bag sum
                  and mean (rtol 1e-5); flash_attention over ragged Sq and
                  Skv (across the tensor-core kernel's 128-row tiles), Sq <
                  Skv (decode offsets over several kv tiles), causal and not,
                  float32 (2e-4) and bfloat16 (5e-2, and 1e-2 in relative
                  norm), each call on the route `flash_attention.route` names
-                 (bf16 with D % 8 == 0: tensor cores; float32 and bf16 D = 12:
-                 CUDA cores); in bfloat16 each is also held within
+                 (bf16 with D % 8 == 0: wgmma; float32 and bf16 D = 12: the
+                 TF32 kernel, in float32 also within 2e-4 of
+                 `attention_3xtf32`, its plain version, and one decode row,
+                 Sq = 1, Skv = 2048, among the shapes); in bfloat16 each is
+                 also held within
                  ROUNDED_REL_ERR (5e-3) in relative norm of
                  `attention_rounded`, the plain version that rounds where the
                  kernels do, and a control shows that dropping key 0 from
@@ -61,12 +71,17 @@ Phases (any failure exits non-zero; nothing is caught):
                  granite-3-8b attention layer (d_model 4096, 32/8 heads,
                  head_dim 128, B = 4, S = 1024) through
                  `gqa_attention(use_flash=True)` against `use_flash=False`,
-                 in bf16 (the tensor-core kernel) within 5e-2 and 1e-2 in
-                 relative norm, and in float32 (the CUDA-core kernel) within
+                 in bf16 (the wgmma kernel) within 5e-2 and 1e-2 in
+                 relative norm, and in float32 (the TF32 kernel) within
                  2e-4, each flash kernel alone likewise, the bf16 one also
-                 within 5e-3 of `attention_rounded`; each kernel timed
-                 beside its plain version and, where one exists, a single
-                 PyTorch call;
+                 within 5e-3 of `attention_rounded`; ell_spmm on each slice
+                 bit-equal to a second call; each kernel timed beside its
+                 plain version and, where one exists, a single PyTorch call
+                 (float32 scaled_dot_product_attention's kernels named by
+                 torch.profiler); the TF32 flash kernel's bound is three
+                 TF32 products a product at 495 TFLOP/s, its CUDA-core
+                 bound beside it, ell_spmm's bound beside the one without
+                 padding weights and its rate of row requests;
   7. report    — the `kernels` JSON line (all eight kernels, flash as two
                  routes), the card line, then the last line
                  {"ok": true, "device": {...}}.
@@ -88,6 +103,7 @@ false or the package is missing beside it.
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import json
 import re
@@ -102,6 +118,7 @@ import torch.nn.functional as F
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet, at the 700 W limit
 F32_OPS_PER_S = 67e12          # float32 outside the tensor cores
+TF32_OPS_PER_S = 495e12        # dense TF32 on the tensor cores (H100 SXM data sheet)
 BF16_OPS_PER_S = 989e12        # dense bf16 on the tensor cores (H100 SXM data sheet)
 
 
@@ -210,6 +227,15 @@ def dropped_key_control(fa, q, k, v, causal: bool, ref: torch.Tensor) -> float:
     lo = 1 if causal and q.shape[2] == k.shape[2] else 0
     dropped = fa.attention_rounded(q[:, :, lo:], k[:, :, 1:], v[:, :, 1:], causal)
     return rel_err(dropped, ref[:, :, lo:])
+
+
+def ptxas_instances(report: str) -> list[tuple[str, int, int]]:
+    """(mangled name, spill bytes, registers) of each kernel in nvcc's
+    `-Xptxas -v` report."""
+    found = re.findall(r"Function properties for (\S+)\n\s*\d+ bytes stack frame, "
+                       r"(\d+) bytes spill stores, (\d+) bytes spill loads\n.*?Used "
+                       r"(\d+) registers", report)
+    return [(name, int(st) + int(ld), int(regs)) for name, st, ld, regs in found]
 
 
 def bound_ms(nbytes: float, ops: float, peak: float = F32_OPS_PER_S) -> tuple[float, str]:
@@ -373,24 +399,50 @@ def sweep_overlay(dev, rng, ell) -> float:
 
 
 def sweep_spmm(dev, rng, ell) -> float:
+    """ell_spmm against its plain version over widths, feature widths and
+    types, with a third of the slots sentinels at random places in their
+    rows (and a slice with no live slot); each layout `spmm_layout` picks:
+    16-byte ids on aligned W % 4 == 0 slices, 4-byte ones on other widths
+    and on views 4 bytes into their storage; 16-, 8-, 4- or 2-byte feature
+    loads by D, type and alignment (a feature view 4 bytes in among them).
+    Each call is repeated and must give the same bits."""
     worst = 0.0
-    for r, w, n in [(13, 1, 50), (40, 3, 90), (777, 32, 3000), (29, 256, 700), (1, 256, 300)]:
-        nbr = torch.from_numpy(rng.integers(0, n + 1, size=(r, w)).astype(np.int32)).to(dev)
-        wgt = torch.from_numpy(rng.random((r, w)).astype(np.float32)).to(dev)
+    cases = [(13, 1, 50, 0, 0.3), (40, 3, 90, 0, 0.3), (777, 32, 3000, 0, 0.3),
+             (29, 256, 700, 0, 0.3), (1, 256, 300, 0, 0.3), (64, 4, 80, 0, 0.0),
+             (37, 32, 100, 1, 0.3), (29, 256, 700, 1, 0.5), (50, 8, 60, 0, 1.0)]
+    for r, w, n, shift, sent in cases:
+        nb = rng.integers(0, n, size=r * w + shift).astype(np.int32)
+        nb[rng.random(r * w + shift) < sent] = n         # sentinels anywhere in a row
+        nbr = torch.from_numpy(nb).to(dev)[shift:].view(r, w)
+        wgt = torch.from_numpy(rng.random(r * w + shift).astype(np.float32)).to(dev)
+        wgt = wgt[shift:].view(r, w)
         for d in (8, 10, 64, 70, 128):
-            f = rng.random((n + 1, d)).astype(np.float32)
-            f[-1] = 0.0
+            f = rng.random((n + 2, d)).astype(np.float32)
+            f[n] = 0.0
             for dt in (torch.float32, torch.bfloat16):
-                feats = torch.from_numpy(f).to(dev).to(dt)
-                a = ell.ell_spmm_cuda(nbr, wgt, feats)
-                b = ell.ell_spmm_plain(nbr, wgt, feats)
-                torch.cuda.synchronize()
-                if a.dtype != dt:
-                    raise AssertionError(f"ell_spmm returned {a.dtype} for {dt}")
-                tol = 1e-5 if dt == torch.float32 else 1.6e-2
-                torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol)
-                if dt == torch.float32:
-                    worst = max(worst, abs_err(a, b))
+                for fshift in ((0, 1) if d == 64 else (0,)):
+                    # (n + 1, D) rows, `fshift` elements into their storage
+                    feats = torch.from_numpy(f).to(dev).to(dt).flatten()
+                    feats = feats[fshift:fshift + (n + 1) * d].view(n + 1, d)
+                    a = ell.ell_spmm_cuda(nbr, wgt, feats)
+                    vec, fvec = ell.spmm_layout(w, d, dt, nbr.data_ptr(), wgt.data_ptr(),
+                                                feats.data_ptr(), a.data_ptr())
+                    if vec != (w % 4 == 0 and shift == 0):
+                        raise AssertionError(f"ell_spmm W={w} shift={shift}: vec_ids {vec}")
+                    if fshift and fvec != 1:
+                        raise AssertionError(f"ell_spmm D={d} {dt} view: {fvec} columns a load")
+                    b = ell.ell_spmm_plain(nbr, wgt, feats)
+                    again = ell.ell_spmm_cuda(nbr, wgt, feats)
+                    torch.cuda.synchronize()
+                    if a.dtype != dt:
+                        raise AssertionError(f"ell_spmm returned {a.dtype} for {dt}")
+                    if not bit_equal(a, again):
+                        raise AssertionError(f"ell_spmm R={r} W={w} D={d} {dt} not "
+                                             "deterministic")
+                    tol = 1e-5 if dt == torch.float32 else 1.6e-2
+                    torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol)
+                    if dt == torch.float32:
+                        worst = max(worst, abs_err(a, b))
     return worst
 
 
@@ -415,18 +467,22 @@ def sweep_bag(dev, rng, bag) -> float:
 
 def sweep_flash(dev, rng, fa, ops, rounded: dict) -> dict:
     """Both flash routes against the plain version; returns the worst
-    absolute error of each kernel (bf16 for the tensor cores, float32 for
-    the CUDA cores) and puts each kernel's worst bf16 relative norm error
-    against `attention_rounded` into `rounded`."""
-    worst = {fa.TENSOR_CORES: 0.0, fa.CUDA_CORES: 0.0}
+    absolute error of each kernel (bf16 for wgmma, float32 for the TF32
+    kernel) and puts each kernel's worst bf16 relative norm error against
+    `attention_rounded` into `rounded`. The TF32 kernel in float32 is also
+    held within 2e-4 of `attention_3xtf32`; what a single TF32 pass
+    (`attention_3xtf32(passes=1)`) would give is logged, not held."""
+    worst = {fa.TENSOR_CORES: 0.0, fa.TF32: 0.0}
     worst_rel, least_control = 0.0, float("inf")
+    one_pass, three_pass = 0.0, 0.0
     for b, hq, hkv, sq, skv, d in [(1, 2, 2, 32, 32, 16), (2, 4, 2, 64, 64, 32),
                                    (1, 8, 1, 100, 100, 64), (2, 4, 2, 16, 80, 32),
                                    (1, 4, 4, 70, 130, 128), (1, 2, 1, 1, 37, 24),
                                    (1, 32, 8, 200, 200, 128), (2, 6, 3, 65, 129, 8),
                                    (2, 4, 2, 200, 333, 64), (1, 6, 3, 300, 300, 128),
                                    (1, 4, 2, 130, 400, 128), (1, 4, 1, 257, 513, 96),
-                                   (1, 4, 2, 150, 170, 12), (1, 32, 8, 1024, 1024, 128)]:
+                                   (1, 4, 2, 150, 170, 12), (1, 32, 8, 1024, 1024, 128),
+                                   (1, 8, 2, 1, 2048, 128)]:
         shapes = ((b, hq, sq, d), (b, hkv, skv, d), (b, hkv, skv, d))
         base = [rng.standard_normal(sh).astype(np.float32) for sh in shapes]
         for dt in (torch.float32, torch.bfloat16):
@@ -441,6 +497,11 @@ def sweep_flash(dev, rng, fa, ops, rounded: dict) -> dict:
                 torch.cuda.synchronize()
                 tol = 2e-4 if dt == torch.float32 else 5e-2
                 torch.testing.assert_close(a.float(), p.float(), rtol=tol, atol=tol)
+                if dt == torch.float32:
+                    t3 = fa.attention_3xtf32(q, k, v, causal)
+                    torch.testing.assert_close(a, t3, rtol=2e-4, atol=2e-4)
+                    three_pass = max(three_pass, abs_err(t3, p))
+                    one_pass = max(one_pass, abs_err(fa.attention_3xtf32(q, k, v, causal, 1), p))
                 if dt == torch.float32 or kernel == fa.TENSOR_CORES:
                     worst[kernel] = max(worst[kernel], abs_err(a.float(), p.float()))
                 if dt == torch.bfloat16:
@@ -459,6 +520,9 @@ def sweep_flash(dev, rng, fa, ops, rounded: dict) -> dict:
         f"against the plain version (limit {fa.BF16_REL_ERR}); against attention_rounded "
         f"{rounded} (limit {fa.ROUNDED_REL_ERR}); one dropped key moves attention_rounded by "
         f"at least {least_control:.3g}")
+    log(f"[3 kernels] flash_attention float32: worst |attention_3xtf32 - plain| "
+        f"{three_pass:.3g}; a single TF32 pass (attention_3xtf32 passes=1) would give "
+        f"{one_pass:.3g} (limit 2e-4, not held)")
     return worst
 
 
@@ -539,7 +603,7 @@ def slice_phase(dev, pack, ops, ell, bag, fa, L, report, err, rounded) -> dict:
     `nn.layers` with the counts set to 0 just before, checks every result,
     then times each kernel beside its plain version (uncounted). The
     granite layer runs in bf16 (the tensor-core flash kernel) and in float32
-    (the CUDA-core one). Fills `report`; returns the five kernels' launch
+    (the TF32 one). Fills `report`; returns the five kernels' launch
     counts."""
     n, slices = pack.n_nodes, pack.slices
     gen = torch.Generator(device=dev)
@@ -586,7 +650,7 @@ def slice_phase(dev, pack, ops, ell, bag, fa, L, report, err, rounded) -> dict:
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     mine = {key: counts[key] for key in
-            ("ell_combine_overlay", "ell_spmm", "embedding_bag", fa.TENSOR_CORES, fa.CUDA_CORES)}
+            ("ell_combine_overlay", "ell_spmm", "embedding_bag", fa.TENSOR_CORES, fa.TF32)}
     log(f"[6 slice] counted run {time.perf_counter() - t0:.3f} s; launches {mine}")
 
     # -- (a) deletion overlay -------------------------------------------------
@@ -637,6 +701,9 @@ def slice_phase(dev, pack, ops, ell, bag, fa, L, report, err, rounded) -> dict:
         for s, o, c in zip(slices, spmm[d], csrs):
             b = ell.ell_spmm_plain(s.nbr, s.wgt, f)
             torch.testing.assert_close(o, b, rtol=1e-5, atol=1e-5)
+            if not bit_equal(o, ell.ell_spmm_cuda(s.nbr, s.wgt, f)):
+                raise AssertionError(f"ell_spmm D={d} on the {tuple(s.nbr.shape)} slice "
+                                     "differs between two calls")
             e_err = max(e_err, abs_err(o, b))
             lib_diff = max(lib_diff, abs_err(o, torch.sparse.mm(c, f)))
         sk = lambda f=f: [ell.ell_spmm_cuda(s.nbr, s.wgt, f) for s in slices]
@@ -644,16 +711,23 @@ def slice_phase(dev, pack, ops, ell, bag, fa, L, report, err, rounded) -> dict:
         sl = lambda f=f: [torch.sparse.mm(c, f) for c in csrs]
         times[d] = (cuda_ms(sk, 5), cuda_ms(sp, 1, 0), cuda_ms(sl, 5), lib_diff)
         log(f"[6 slice] (b) ell_spmm D={d}: {times[d][0]:.4f} ms (plain {times[d][1]:.4f}, "
-            f"torch.sparse.mm {times[d][2]:.4f}, max |kernel - sparse.mm| {lib_diff:.3g})")
+            f"torch.sparse.mm {times[d][2]:.4f}, max |kernel - sparse.mm| {lib_diff:.3g}); "
+            f"bit-equal to itself on a second call; row requests {real * d * 4 / 1e9:.2f} GB "
+            f"= {real * d * 4 / times[d][0] / 1e9:.3f} TB/s")
     del spmm, csrs
     d = 64
+    # every slot's id and weight (the first bound), or the weights of the
+    # live slots only (what the kernel reads); each used row once; the output
     bnd = bound_ms(slots * 8 + used_rows * d * 4 + rows * d * 4, 2 * real * d)
+    live_bnd = bound_ms(slots * 4 + real * 4 + used_rows * d * 4 + rows * d * 4, 2 * real * d)
     report["ell_spmm"] = dict(
         replaces="src/repro/kernels/ell_spmv.py:150",
         shape=f"{len(slices)} RMAT ELL slices, {real} live slots, D=64 float32 "
               f"(D=70: {times[70][0]:.4f} ms, plain {times[70][1]:.4f}, library {times[70][2]:.4f})",
         max_abs_err=max(e_err, err["ell_spmm"]), ms=times[d][0], plain_ms=times[d][1],
-        bound_ms=bnd[0], bound_by=bnd[1], library_ms=times[d][2])
+        bound_ms=bnd[0], bound_by=bnd[1], bound_live_weights_ms=live_bnd[0],
+        request_tb_per_s=real * d * 4 / times[d][0] / 1e9,
+        request_tb_per_s_d70=real * 70 * 4 / times[70][0] / 1e9, library_ms=times[d][2])
 
     # -- (c) embedding_bag ----------------------------------------------------
     idx64 = idx.long()
@@ -710,7 +784,7 @@ def slice_phase(dev, pack, ops, ell, bag, fa, L, report, err, rounded) -> dict:
     lib = F.scaled_dot_product_attention(q, kr, vr, is_causal=True)
     log(f"[6 slice] (d) flash vs plain in bfloat16 (tensor cores) max abs diff "
         f"{abs_err(a.float(), pl.float()):.3g}, relative norm {rel_err(a, pl):.3g}; in float32 "
-        f"(CUDA cores) max abs diff {abs_err(a32, p32):.3g}, relative norm "
+        f"(TF32) max abs diff {abs_err(a32, p32):.3g}, relative norm "
         f"{rel_err(a32, p32):.3g}; "
         f"output rms {float(pl.float().square().mean().sqrt()):.3g}; "
         f"vs scaled_dot_product_attention {abs_err(a.float(), lib.float()):.3g}")
@@ -730,13 +804,21 @@ def slice_phase(dev, pack, ops, ell, bag, fa, L, report, err, rounded) -> dict:
     del r
     pairs = batch * hq * seq * (seq + 1) // 2          # causal (query, key) pairs
     shape = f"granite-3-8b layer: q {tuple(q.shape)}, kv {tuple(k.shape)}, causal"
-    for kernel, qq, kk, vv, kx, vx, peak, what, e in (
-            (fa.TENSOR_CORES, q, k, v, kr, vr, BF16_OPS_PER_S, "bf16",
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        F.scaled_dot_product_attention(q32, kr32, vr32, is_causal=True)
+        torch.cuda.synchronize()
+    names = sorted({e.key for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA})
+    log(f"[6 slice] (d) float32 scaled_dot_product_attention runs {names}")
+    # the TF32 kernel does three TF32 products for each float32 one
+    for kernel, qq, kk, vv, kx, vx, ops_x, peak, what, e in (
+            (fa.TENSOR_CORES, q, k, v, kr, vr, 1, BF16_OPS_PER_S, "bf16",
              abs_err(a.float(), pl.float())),
-            (fa.CUDA_CORES, q32, k32, v32, kr32, vr32, F32_OPS_PER_S, "float32",
+            (fa.TF32, q32, k32, v32, kr32, vr32, 3, TF32_OPS_PER_S, "float32, 3xTF32",
              abs_err(a32, p32))):
-        bnd = bound_ms((qq.numel() * 2 + kk.numel() * 2) * qq.element_size(), 4 * pairs * dh,
-                       peak)
+        nbytes = (qq.numel() * 2 + kk.numel() * 2) * qq.element_size()
+        bnd = bound_ms(nbytes, ops_x * 4 * pairs * dh, peak)
         report[kernel] = dict(
             replaces="src/repro/kernels/flash_attention.py:28",
             shape=f"{shape}, {what}",
@@ -746,6 +828,9 @@ def slice_phase(dev, pack, ops, ell, bag, fa, L, report, err, rounded) -> dict:
             bound_ms=bnd[0], bound_by=bnd[1],
             library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(qq, kx, vx, is_causal=True),
                                10))
+    report[fa.TF32].update(
+        bound_cuda_cores_ms=bound_ms(nbytes, 4 * pairs * dh, F32_OPS_PER_S)[0],
+        library_kernels=names)
     del q32, k32, v32, kr32, vr32, a32, p32
     for key in mine:
         r = report[key]
@@ -804,23 +889,41 @@ def main() -> int:
             f"registers, max {max(smem, default=0)} bytes of static shared memory, "
             f"spill lines {len(spills)}")
     log(f"[2 build] nvcc build {time.perf_counter() - t0:.1f} s")
-    sass = subprocess.run(
-        [str(Path(_build._nvcc()).parent / "cuobjdump"), "-sass",
-         str(_build._lib_path(_build.KERNELS[fa.TENSOR_CORES]))],
-        capture_output=True, text=True, check=True, timeout=120).stdout
+    def sass_of(source: str) -> str:
+        return subprocess.run(
+            [str(Path(_build._nvcc()).parent / "cuobjdump"), "-sass",
+             str(_build._lib_path(source))],
+            capture_output=True, text=True, check=True, timeout=120).stdout
+
+    sass = sass_of(_build.KERNELS[fa.TENSOR_CORES])
     found = {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
     log(f"[2 build] {_build.KERNELS[fa.TENSOR_CORES]} SASS: {found}")
     if not all(found.values()):
         raise AssertionError(f"the tensor-core flash kernel lacks wgmma or TMA loads: {found}")
-    sass = subprocess.run(
-        [str(Path(_build._nvcc()).parent / "cuobjdump"), "-sass",
-         str(_build._lib_path("ell_combine"))],
-        capture_output=True, text=True, check=True, timeout=120).stdout
-    wide = sass.count("LDG.E.128")
-    narrow = len(re.findall(r"LDG\.E(?:\.CONSTANT)?\s", sass))
-    log(f"[2 build] ell_combine SASS: LDG.E.128 {wide}, 32-bit LDG.E {narrow}")
-    if not wide:
-        raise AssertionError("ell_combine has no 128-bit global loads (LDG.E.128)")
+    for source in ("ell_combine", "ell_spmm"):
+        sass = sass_of(source)
+        wide = sass.count("LDG.E.128")
+        narrow = len(re.findall(r"LDG\.E(?:\.CONSTANT)?\s", sass))
+        log(f"[2 build] {source} SASS: LDG.E.128 {wide}, 32-bit LDG.E {narrow}")
+        if not wide:
+            raise AssertionError(f"{source} has no 128-bit global loads (LDG.E.128)")
+    sass = sass_of(_build.KERNELS[fa.TF32])
+    tf32 = collections.Counter(re.findall(r"HMMA\.\S*TF32\S*", sass))
+    log(f"[2 build] {_build.KERNELS[fa.TF32]} SASS: {dict(tf32)}")
+    if not tf32:
+        raise AssertionError("the TF32 flash kernel has no TF32 tensor-core instructions")
+    # registers and spills of every instance; the main path's by name:
+    # flash_kernel<float, DP = 128, causal, cp.async>; spmm_kernel<float, V, L, C>
+    # at D = 64 (V = 4, L = 16, C = 1) and D = 70 (V = 2, L = 16, C = 3)
+    for source, main in ((_build.KERNELS[fa.TF32], "flash_kernelIfLi128ELb1ELb1E"),
+                         ("ell_spmm", "spmm_kernelIfLi4ELi16ELi1E"),
+                         ("ell_spmm", "spmm_kernelIfLi2ELi16ELi3E")):
+        per = ptxas_instances(_build.ptxas_report(source))
+        regs = sorted({x[2] for x in per})
+        spill = sum(x[1] for x in per)
+        on_path = [f"{x[2]} registers, {x[1]} spill bytes" for x in per if main in x[0]]
+        log(f"[2 build] {source}: {len(per)} instances, registers {regs[:1] + regs[-1:]} "
+            f"(least, most), spill bytes {spill}; main path's {main}: {on_path}")
 
     rng = np.random.default_rng(0)
     rounded = {}

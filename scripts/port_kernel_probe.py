@@ -6,6 +6,8 @@
     python3 scripts/port_kernel_probe.py wrappers [--root DIR]
     python3 scripts/port_kernel_probe.py combine [--root DIR] [--parent DIR]
     python3 scripts/port_kernel_probe.py tiers
+    python3 scripts/port_kernel_probe.py flash32 [--root DIR] [--parent DIR]
+    python3 scripts/port_kernel_probe.py spmm [--root DIR] [--parent DIR]
 
 tiles    — builds `csrc/flash_attention_wgmma.cu` with -DFLASH_WGMMA_PROBE
            into `build/probe/` (the same kernel, whose kv-tile width and
@@ -49,6 +51,25 @@ tiers    — builds `csrc/segment_reduce.cu` with other thread-tier limits
            `build/probe/`, holds each bit-equal to `segment_reduce_ordered`
            at its limit (sum, min) at RMAT-22's push shape and one merge,
            and times each there (CUDA events; the merge by CUDA graph).
+flash32  — `flash_attention_cuda` in float32 (the `flash_attention_f32`
+           route) at granite-3-8b's layer (B = 4, 32 / 8 heads of 128,
+           S = 1024, causal) and at one decode row (Sq = 1, Skv = 2048),
+           beside float32 `scaled_dot_product_attention` (kv heads repeated
+           group-major), each held within 2e-4 of `attention_plain`; then
+           the library call's kernels by name, and the device time of each
+           kernel of this tree's call (the K/V split pre-pass and the
+           attention kernel) at both shapes (torch.profiler). The kernels
+           come from the `repro_torch` under DIR/src; with --parent, the tree
+           under that DIR is timed in the same process and on the same
+           inputs, in turns (parent, change, change, parent). CUDA events.
+spmm     — `ell_spmm` over the four ELL slices of RMAT scale 22 (edge
+           factor 16, seed 1, undirected) at D = 64 and D = 70, float32,
+           beside `torch.sparse.mm` on the same slices as CSR, each held
+           within rtol 1e-5 of the first tree's output; per slice and all
+           four; --root and --parent as for flash32. Last, this tree's
+           kernel on the same slices with every live id replaced by a
+           uniform draw from [0, n): the rate of row requests when hubs
+           give L2 nothing to reuse. CUDA events.
 
 It fails where there is no GPU or a variant does not build or disagrees.
 """
@@ -211,26 +232,137 @@ def wrappers(dev, root: Path) -> None:
             f"{cuda_ms(fn, 50, 5, 7):.4f} ms a call, host enqueue {host_us(fn):.1f} us a call")
 
 
-def load_kernels(root: Path):
-    """`segment_reduce` and `ell_spmv` of the `repro_torch` under root/src,
-    imported afresh (an earlier tree's modules stay alive through the
-    functions returned; each tree builds into its own build/kernels)."""
+def load_kernels(root: Path, names=("segment_reduce", "ell_spmv")):
+    """The modules `names` of `repro_torch.kernels` under root/src, imported
+    afresh (an earlier tree's modules stay alive through the functions
+    returned; each tree builds into its own build/kernels)."""
+    import importlib
+
     for name in [k for k in sys.modules if k.split(".")[0] == "repro_torch"]:
         del sys.modules[name]
     try:
         repro_torch = import_port(root)
-        from repro_torch.kernels import ell_spmv, segment_reduce
+        mods = tuple(importlib.import_module(f"repro_torch.kernels.{n}") for n in names)
     finally:
         sys.path[:] = [p for p in sys.path if p != str(root / "src")]
-    log(f"[combine] tree {root}: {repro_torch.__file__}")
-    return segment_reduce, ell_spmv
+    log(f"[load] tree {root}: {repro_torch.__file__}")
+    return mods
+
+
+def trees_in_turns(root: Path, parent, names):
+    """[(label, *modules)] in the order they are timed: parent, change,
+    change, parent with --parent, else the change alone."""
+    trees = []
+    if parent is not None:
+        trees.append(("parent", *load_kernels(parent, names)))
+    trees.append(("change", *load_kernels(root, names)))     # its modules stay imported
+    return trees if parent is None else [trees[0], trees[1], trees[1], trees[0]]
+
+
+def flash32(dev, root: Path, parent) -> None:
+    order = trees_in_turns(root, parent, ("flash_attention",))
+    fa = order[1 if parent is not None else 0][1]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(15)
+    cases = {}
+    for what, b, sq, skv in (("granite layer", 4, 1024, 1024), ("decode row", 4, 1, 2048)):
+        q = torch.randn(b, 32, sq, 128, device=dev, generator=gen)
+        k = torch.randn(b, 8, skv, 128, device=dev, generator=gen)
+        v = torch.randn(b, 8, skv, 128, device=dev, generator=gen)
+        kr, vr = k.repeat(1, 4, 1, 1), v.repeat(1, 4, 1, 1)        # group-major
+        cases[what] = (q, k, v, kr, vr, fa.attention_plain(q, k, v, True))
+    for label, mod in order:
+        for what, (q, k, v, kr, vr, ref) in cases.items():
+            got = mod.flash_attention_cuda(q, k, v, True)
+            torch.testing.assert_close(got, ref, rtol=2e-4, atol=2e-4)
+            ms = cuda_ms(lambda: mod.flash_attention_cuda(q, k, v, True), 20, 3, 3)
+            lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, kr, vr, is_causal=True),
+                          20, 3, 3)
+            log(f"[flash32] {label}: {what}: {ms:.4f} ms, scaled_dot_product_attention "
+                f"{lib:.4f} ms, max |kernel - plain| {float((got - ref).abs().max()):.3g}")
+    from torch.profiler import ProfilerActivity, profile
+
+    q, k, v, kr, vr, _ = cases["granite layer"]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        F.scaled_dot_product_attention(q, kr, vr, is_causal=True)
+        torch.cuda.synchronize()
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            log(f"[flash32] float32 scaled_dot_product_attention kernel: {e.key}")
+    # the change's call, split by kernel: the K/V split pre-pass and the
+    # attention kernel (torch.profiler device time)
+    for what, (q, k, v, *_) in cases.items():
+        for _ in range(3):
+            fa.flash_attention_cuda(q, k, v, True)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                fa.flash_attention_cuda(q, k, v, True)
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            us = getattr(e, "self_device_time_total", 0) or 0
+            if us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+                log(f"[flash32] change: {what}: {e.key[:60]} {us / 10:.2f} us a call")
+
+
+def spmm(dev, root: Path, parent) -> None:
+    order = trees_in_turns(root, parent, ("ell_spmv",))
+    from repro_torch.graph import generators as G
+    from repro_torch.graph import pack_ell
+    from repro_torch.graph.csr import from_edges
+
+    src, dst, w = G.rmat_edges(22, 16, 0.57, 0.19, 0.19, seed=1)
+    g = from_edges(src, dst, 1 << 22, w, directed=False, device=dev)
+    del src, dst, w
+    pack = pack_ell(g.inc)
+    n = g.n_nodes
+    del g
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(15)
+    feats = {}
+    for d in (64, 70):
+        feats[d] = torch.rand(n + 1, d, device=dev, generator=gen)
+        feats[d][n] = 0.0
+    csrs = []
+    for s in pack.slices:
+        live = s.nbr != n
+        crow = torch.zeros(s.rows + 1, dtype=torch.int32, device=dev)
+        crow[1:] = live.sum(dim=1).cumsum(0)
+        csrs.append(torch.sparse_csr_tensor(crow, s.nbr[live], s.wgt[live],
+                                            size=(s.rows, n + 1)))
+    real = sum(int((s.nbr != n).sum()) for s in pack.slices)
+    log(f"[spmm] RMAT 22: n={n}, {real} live slots, slices "
+        f"{[tuple(s.nbr.shape) for s in pack.slices]}")
+    ref = {}
+    for label, ell in order:
+        for d, f in feats.items():
+            outs = [ell.ell_spmm_cuda(s.nbr, s.wgt, f) for s in pack.slices]
+            if d not in ref:
+                ref[d] = outs
+            for a, b in zip(outs, ref[d]):
+                torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+            del outs
+            per = [cuda_ms(lambda s=s: ell.ell_spmm_cuda(s.nbr, s.wgt, f), 10, 2, 3)
+                   for s in pack.slices]
+            ms = cuda_ms(lambda: [ell.ell_spmm_cuda(s.nbr, s.wgt, f) for s in pack.slices],
+                         5, 2, 3)
+            lib = cuda_ms(lambda: [torch.sparse.mm(c, f) for c in csrs], 5, 2, 3)
+            log(f"[spmm] {label}: D={d}: {ms:.4f} ms (slices {[round(x, 4) for x in per]}), "
+                f"torch.sparse.mm {lib:.4f} ms; row requests {real * d * 4 / ms / 1e9:.3f} TB/s")
+    ell = order[1 if parent is not None else 0][1]
+    uniform = []
+    for s in pack.slices:
+        live = s.nbr != n
+        ids = torch.randint(0, n, s.nbr.shape, device=dev, generator=gen, dtype=torch.int32)
+        uniform.append((torch.where(live, ids, n), s.wgt))
+    for d, f in feats.items():
+        ms = cuda_ms(lambda: [ell.ell_spmm_cuda(nb, wg, f) for nb, wg in uniform], 5, 2, 3)
+        log(f"[spmm] change: D={d}, live ids drawn uniformly: {ms:.4f} ms; row requests "
+            f"{real * d * 4 / ms / 1e9:.3f} TB/s")
 
 
 def combine(dev, root: Path, parent) -> None:
-    trees = []
-    if parent is not None:
-        trees.append(("parent", *load_kernels(parent)))
-    trees.append(("change", *load_kernels(root)))     # its modules stay imported
+    order = trees_in_turns(root, parent, ("segment_reduce", "ell_spmv"))
     from repro_torch.graph import generators as G
     from repro_torch.graph import pack_ell
     from repro_torch.graph.csr import from_edges
@@ -252,7 +384,6 @@ def combine(dev, root: Path, parent) -> None:
     log(f"[combine] RMAT 22: n={n} m={m}, {int(live.sum())} live lanes in the sparse push, "
         f"slices {[tuple(s.nbr.shape) for s in pack.slices]}")
     ref = {}
-    order = trees if parent is None else [trees[0], trees[1], trees[1], trees[0]]
     for label, sr, ell in order:
         calls = {"push": lambda: sr.segment_reduce_cuda(sv, sid, n, "sum"),
                  "push 1 %": lambda: sr.segment_reduce_cuda(sv, sparse, n, "sum")}
@@ -277,7 +408,7 @@ def combine(dev, root: Path, parent) -> None:
     # the change's push call, split by kernel (torch.profiler device time)
     from torch.profiler import ProfilerActivity, profile
 
-    sr = trees[-1][1]
+    sr = order[1 if parent is not None else 0][1]
     for what, ids in (("push", sid), ("push 1 %", sparse)):
         for _ in range(3):
             sr.segment_reduce_cuda(sv, ids, n, "sum")
@@ -369,19 +500,22 @@ def tiers(dev) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("probe", choices=("tiles", "pack", "wrappers", "combine", "tiers"))
+    ap.add_argument("probe", choices=("tiles", "pack", "wrappers", "combine", "tiers",
+                                      "flash32", "spmm"))
     ap.add_argument("--root", type=Path, default=ROOT,
                     help="checkout whose src/repro_torch the wrappers and combine probes time")
     ap.add_argument("--parent", type=Path, default=None,
-                    help="combine: also time the tree under this checkout, in turns")
+                    help="combine, flash32, spmm: also time the tree under this "
+                         "checkout, in turns")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("port_kernel_probe: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
     log(f"[card] {card_line()}")
-    if args.probe == "combine":
-        combine(dev, args.root, args.parent)
+    if args.probe in ("combine", "flash32", "spmm"):
+        {"combine": combine, "flash32": flash32, "spmm": spmm}[args.probe](
+            dev, args.root, args.parent)
         return 0
     import_port(args.root if args.probe == "wrappers" else ROOT)
     if args.probe == "tiles":

@@ -8,8 +8,8 @@
 // contiguous. Query head h reads kv head h % Hkv (group-major, as the Pallas
 // index map :119 and ref.attention_ref do). With `causal`, query i sees kv
 // positions <= i + Skv - Sq (the decode offset). float32, and bf16 with
-// D % 8 != 0 (TMA needs 16-byte row strides), take the CUDA-core kernel in
-// flash_attention.cu.
+// D % 8 != 0 (TMA needs 16-byte row strides), take the TF32 mma.sync kernel
+// in flash_attention.cu.
 //
 // Numerics follow `_flash_kernel`: scores q.k in float32 (the tensor cores
 // accumulate bf16 products in f32), scaled by 1/sqrt(D) after the product;

@@ -1,6 +1,6 @@
 // Helpers shared by the kernels of this directory: float32 <-> bfloat16
-// conversions and the lane-group dispatch of the row-gather kernels
-// (ell_spmm.cu, embedding_bag.cu). `kernels/_build.py` hashes every header
+// conversions and the lane-group dispatch of embedding_bag.cu (`Int` is
+// ell_spmm.cu's too). `kernels/_build.py` hashes every header
 // here together with each .cu file, so an edit here rebuilds every kernel.
 
 #pragma once

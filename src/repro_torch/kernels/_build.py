@@ -27,7 +27,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 #: each kernel and the source that holds it (the deletion overlay is a
 #: template flag of `ell_combine.cu`, counted apart; flash attention has two
-#: routes: the tensor cores for bfloat16, the CUDA cores for the rest)
+#: routes: wgmma for bfloat16, mma.sync in TF32 (3xTF32 for float32) for the
+#: rest)
 KERNELS = {"ell_combine": "ell_combine", "ell_combine_overlay": "ell_combine",
            "frontier_pack": "frontier_pack", "segment_reduce": "segment_reduce",
            "ell_spmm": "ell_spmm", "embedding_bag": "embedding_bag",

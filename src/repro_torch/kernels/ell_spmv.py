@@ -24,10 +24,12 @@ four the catalog uses (`COMPUTE_OPS`); an `ACCProgram` declares its op in
 `halving_tree`, in the kernel and in the plain version alike, so the two are
 bit-equal for sums as well as for min and max.
 
-`ell_spmm`'s kernel is `csrc/ell_spmm.cu`: f32 accumulation over the slots
-in order, output in F's dtype (float32 or bfloat16). Its plain version
-works in row chunks, so that the gathered (rows, W, D) block stays small at
-full graph size.
+`ell_spmm`'s kernel is `csrc/ell_spmm.cu`: one warp a row walks the live
+slots only, with f32 accumulation in a fixed order, output in F's dtype
+(float32 or bfloat16); `spmm_layout` picks its loads (16-byte ids and
+weights where W and the alignment allow it; 16-, 8-, 4- or 2-byte feature
+loads by D, dtype and alignment). Its plain version works in row chunks, so
+that the gathered (rows, W, D) block stays small at full graph size.
 """
 
 from __future__ import annotations
@@ -237,9 +239,27 @@ def ell_spmm_plain(nbr: torch.Tensor, wgt: torch.Tensor, feats: torch.Tensor
     return out
 
 
+def spmm_layout(width: int, d: int, dtype: torch.dtype, nbr_ptr: int, wgt_ptr: int,
+                feats_ptr: int, out_ptr: int) -> tuple[bool, int]:
+    """(vec_ids, fvec) of `ell_spmm`'s kernel for a slice of `width` slots
+    and D = `d` features of `dtype`: ids and weights in 16-byte loads where
+    `vector_layout` takes the slice (every `pack_ell` slice), else 4-byte
+    ones; fvec feature columns a load, the widest of 16, 8, 4 and 2 bytes
+    (bfloat16 down to one element) that divides the row and to which feats
+    and out are aligned: 4 at D = 64 in float32, 2 at D = 70."""
+    vec_ids = vector_layout(width, nbr_ptr, wgt_ptr)
+    size = 4 if dtype == torch.float32 else 2
+    for nbytes in (16, 8, 4, 2):
+        v = max(nbytes // size, 1)
+        if d % v == 0 and feats_ptr % (v * size) == 0 and out_ptr % (v * size) == 0:
+            return vec_ids, v
+    raise ValueError(f"feats at {feats_ptr:#x} is not aligned to its {dtype}")
+
+
 _SPMM_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                  ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
+                  ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                  ctypes.c_void_p)
 
 
 def ell_spmm_cuda(nbr: torch.Tensor, wgt: torch.Tensor, feats: torch.Tensor
@@ -262,10 +282,11 @@ def ell_spmm_cuda(nbr: torch.Tensor, wgt: torch.Tensor, feats: torch.Tensor
     if not 1 <= d <= MAX_FEATURES:
         raise ValueError(f"feature width {d} outside [1, {MAX_FEATURES}]")
     out = torch.empty((r, d), dtype=feats.dtype, device=dev)
+    vec_ids, fvec = spmm_layout(w, d, feats.dtype, p_nbr, p_wgt, p_f, out.data_ptr())
     fn = _build.entry("ell_spmm", "ell_spmm_launch", _SPMM_ARGTYPES)
     with _build.device_guard(dev):
         err = fn(p_nbr, p_wgt, p_f, out.data_ptr(), r, w, d, npad - 1,
-                 SPMM_DTYPES[feats.dtype], _build.stream_of(dev))
+                 SPMM_DTYPES[feats.dtype], int(vec_ids), fvec, _build.stream_of(dev))
     _build.check(err, "ell_spmm")
     _build.LAUNCHES["ell_spmm"] += 1
     return out

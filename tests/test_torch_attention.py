@@ -237,3 +237,89 @@ def test_interop_carries_bf16_bits():
     t = interop.tensor_from_numpy(a, "cpu")
     assert t.dtype == torch.bfloat16 and t.shape == (4, 6)
     assert np.array_equal(t.float().numpy(), a.astype(np.float32))
+
+
+# ---------------------------------------------------------------------------
+# the TF32 flash kernel's arithmetic: the 3xTF32 split
+# ---------------------------------------------------------------------------
+
+
+def _rna_reference(x: np.ndarray) -> np.ndarray:
+    """Normal float32 values rounded to 10 mantissa bits, to nearest with
+    ties away from zero, in float64 arithmetic (not on the bits)."""
+    x64 = x.astype(np.float64)
+    ulp = np.exp2(np.floor(np.log2(np.abs(x64))) - 10)
+    return (np.sign(x64) * np.floor(np.abs(x64) / ulp + 0.5) * ulp).astype(np.float32)
+
+
+def _low_bits(t: torch.Tensor) -> np.ndarray:
+    return t.view(torch.int32).numpy() & 0x1FFF
+
+
+def test_split_tf32_big_is_the_nearest_tf32_and_the_halves_sum_to_x():
+    rng = np.random.default_rng(15)
+    x = (rng.standard_normal(20000) * np.exp2(rng.integers(-100, 100, 20000))).astype(np.float32)
+    big, small = tfa.split_tf32(torch.from_numpy(x))
+    assert not _low_bits(big).any() and not _low_bits(small).any()
+    assert np.array_equal(big.numpy(), _rna_reference(x))
+    err = np.abs(x.astype(np.float64) - big.double().numpy() - small.double().numpy())
+    assert (err <= np.exp2(-22) * np.abs(x.astype(np.float64))).all()
+
+
+def test_split_tf32_rounds_ties_away_from_zero():
+    # 1 + 2^-11 and 1 + 3 * 2^-11 lie halfway between TF32 neighbours
+    x = np.array([1 + 2.0 ** -11, 1 + 3 * 2.0 ** -11, 2.0 ** 20 * (1 + 2.0 ** -11)],
+                 dtype=np.float32)
+    x = np.concatenate([x, -x])
+    big, small = tfa.split_tf32(torch.from_numpy(x))
+    up = np.array([1 + 2.0 ** -10, 1 + 2 * 2.0 ** -10, 2.0 ** 20 * (1 + 2.0 ** -10)])
+    assert np.array_equal(big.numpy(), np.concatenate([up, -up]).astype(np.float32))
+    assert np.array_equal(big.double().numpy() + small.double().numpy(), x.astype(np.float64))
+
+
+def test_split_tf32_keeps_zeros_infinities_and_subnormals():
+    x = torch.tensor([0.0, -0.0, float("inf"), float("-inf")])
+    big, small = tfa.split_tf32(x)
+    assert torch.equal(big.view(torch.int32), x.view(torch.int32))     # signs of zero kept
+    assert torch.equal(small, torch.zeros(4))
+    assert torch.equal(big + small, x)
+    rng = np.random.default_rng(16)
+    sub = (rng.random(5000) * np.float32(2.0 ** -126)).astype(np.float32)
+    sub = np.concatenate([sub, -sub, [np.float32(2.0 ** -149)], [np.float32(2.0 ** -126)]])
+    big, small = tfa.split_tf32(torch.from_numpy(sub.astype(np.float32)))
+    assert not _low_bits(big).any() and not _low_bits(small).any()
+    # TF32 keeps 10 bits at the subnormals' fixed exponent: half a unit of
+    # 2^-136 is the most the pair can miss by
+    err = np.abs(sub.astype(np.float64) - big.double().numpy() - small.double().numpy())
+    assert (err <= np.exp2(-137)).all()
+
+
+TF32_SHAPES = ATTN_SHAPES + [(1, 4, 2, 32, 48, 12), (1, 2, 1, 16, 64, 96),
+                             (1, 4, 2, 32, 32, 128)]
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d", TF32_SHAPES)
+@pytest.mark.parametrize("causal", [True, False])
+def test_attention_3xtf32_matches_plain_and_flash(b, hq, hkv, sq, skv, d, causal):
+    """The TF32 kernel's plain version in float32 is within 2e-4 of the
+    plain attention and of the Pallas kernel (the limit the card holds the
+    kernel to)."""
+    q, k, v = _qkv(b, hq, hkv, sq, skv, d, sq + skv + d)
+    t = tfa.attention_3xtf32(*map(torch.from_numpy, (q, k, v)), causal)
+    assert t.dtype == torch.float32 and t.shape == q.shape
+    p = tfa.attention_plain(*map(torch.from_numpy, (q, k, v)), causal)
+    flash = jfa.flash_attention(*map(jnp.asarray, (q, k, v)), causal=causal, block_q=16,
+                                block_kv=16, interpret=True)
+    np.testing.assert_allclose(p.numpy(), t.numpy(), rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(np.asarray(flash), t.numpy(), rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_attention_3xtf32_in_bfloat16_is_attention_rounded(causal):
+    """bfloat16 values are exact in TF32: their small halves are zero, and
+    the TF32 plain version is the one that rounds where the kernels round."""
+    q, k, v = (torch.from_numpy(x).to(torch.bfloat16) for x in _qkv(1, 4, 2, 24, 40, 12, 3))
+    assert torch.equal(tfa.split_tf32(q)[1], torch.zeros(q.shape))
+    t = tfa.attention_3xtf32(q, k, v, causal)
+    assert t.dtype == torch.bfloat16
+    assert torch.equal(t, tfa.attention_rounded(q, k, v, causal))

@@ -286,8 +286,8 @@ def test_flash_attention_matches_plain(cuda, b, hq, hkv, sq, skv, d, causal, dty
     (torch.bfloat16, "flash_attention", "flash_attention_f32", 5e-2),
     (torch.float32, "flash_attention_f32", "flash_attention", 2e-4)])
 def test_gqa_attention_flash_launches_the_kernel(cuda, dtype, kernel, other, tol):
-    """bfloat16 (head dim 32) takes the tensor-core kernel, float32 the
-    CUDA-core one; each call launches one kernel and not the other."""
+    """bfloat16 (head dim 32) takes the wgmma kernel, float32 the TF32
+    mma.sync one; each call launches one kernel and not the other."""
     torch.manual_seed(0)
     d, h, hkv, dh = 256, 8, 2, 32
     p = {"wq": torch.randn(d, h * dh, device=cuda) / 16,
@@ -303,3 +303,100 @@ def test_gqa_attention_flash_launches_the_kernel(cuda, dtype, kernel, other, tol
     assert counts[kernel] == 1 and counts[other] == 0
     b, _ = TL.gqa_attention(x, p, n_heads=h, n_kv=hkv, positions=pos, use_flash=False)
     torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol)
+
+
+F32_FLASH_SHAPES = [(1, 2, 2, 32, 32, 16), (2, 4, 2, 64, 64, 32), (1, 8, 1, 100, 100, 64),
+                    (2, 4, 2, 16, 80, 32), (1, 4, 4, 70, 130, 128), (1, 2, 1, 1, 37, 24),
+                    (2, 4, 2, 200, 333, 64), (1, 4, 1, 257, 513, 96), (2, 2, 1, 150, 150, 8),
+                    (1, 4, 2, 150, 170, 12), (1, 32, 8, 1024, 1024, 128),
+                    (1, 32, 8, 1, 2048, 128)]       # one decode row
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d", F32_FLASH_SHAPES)
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_f32_matches_plain_and_3xtf32(cuda, b, hq, hkv, sq, skv, d, causal):
+    """The TF32 kernel in float32 within 2e-4 of the plain attention and of
+    `attention_3xtf32`, the plain version that splits as it does."""
+    rng = np.random.default_rng(skv * d + sq)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(cuda)
+               for s in ((b, hq, sq, d), (b, hkv, skv, d), (b, hkv, skv, d)))
+    ops.reset_launches()
+    a = tfa.flash_attention_cuda(q, k, v, causal)
+    assert ops.launch_counts()[tfa.TF32] == 1
+    torch.testing.assert_close(a, tfa.attention_plain(q, k, v, causal), rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(a, tfa.attention_3xtf32(q, k, v, causal), rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bf16_d12_takes_the_tf32_kernel(cuda, causal):
+    """bfloat16 with D % 8 != 0 goes through the TF32 kernel (big halves only):
+    held at 5e-2, BF16_REL_ERR and ROUNDED_REL_ERR."""
+    rng = np.random.default_rng(12)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(cuda)
+               .to(torch.bfloat16) for s in ((2, 6, 140, 12), (2, 3, 260, 12),
+                                              (2, 3, 260, 12)))
+    ops.reset_launches()
+    a = tfa.flash_attention_cuda(q, k, v, causal)
+    assert ops.launch_counts()[tfa.TF32] == 1 and a.dtype == torch.bfloat16
+    p = tfa.attention_plain(q, k, v, causal)
+    torch.testing.assert_close(a.float(), p.float(), rtol=5e-2, atol=5e-2)
+    af, pf = a.float(), p.float()
+    assert float((af - pf).norm() / pf.norm()) <= tfa.BF16_REL_ERR
+    rf = tfa.attention_rounded(q, k, v, causal).float()
+    assert float((af - rf).norm() / rf.norm()) <= tfa.ROUNDED_REL_ERR
+
+
+def _spmm_case(r, w, n, d, sentinels, seed, shift=0, fshift=0, dtype=torch.float32):
+    """nbr with a share of sentinel slots anywhere in a row; nbr and wgt (and
+    the features) optionally views `shift` (`fshift`) elements into their
+    storage."""
+    rng = np.random.default_rng(seed)
+    nb = rng.integers(0, n, r * w + shift).astype(np.int32)
+    nb[rng.random(r * w + shift) < sentinels] = n
+    nbr = torch.from_numpy(nb).cuda()[shift:].view(r, w)
+    wgt = torch.from_numpy(rng.random(r * w + shift).astype(np.float32)).cuda()[shift:]
+    f = rng.random((n + 2) * d).astype(np.float32)
+    f[n * d:(n + 1) * d] = 0.0
+    feats = torch.from_numpy(f).cuda().to(dtype)[fshift:fshift + (n + 1) * d]
+    return nbr, wgt.view(r, w), feats.view(n + 1, d)
+
+
+@pytest.mark.parametrize("r,w,n,d", [(300, 32, 1000, 64), (41, 256, 900, 70),
+                                     (97, 4, 60, 10), (29, 256, 700, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ell_spmm_twice_bit_identical_with_sentinels_mid_row(cuda, r, w, n, d, dtype):
+    """A third of the slots sentinels at random places in their rows: within
+    the limits of the plain version, and the same bits on a second call."""
+    nbr, wgt, feats = _spmm_case(r, w, n, d, 0.3, r + d, dtype=dtype)
+    a = tell.ell_spmm_cuda(nbr, wgt, feats)
+    assert torch.equal(a, tell.ell_spmm_cuda(nbr, wgt, feats))
+    b = tell.ell_spmm_plain(nbr, wgt, feats)
+    if dtype == torch.float32:
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    else:
+        torch.testing.assert_close(a.float(), b.float(), rtol=1.6e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("w", [4, 32, 256, 3])
+def test_ell_spmm_slice_with_no_live_slot_is_zero(cuda, w):
+    nbr, wgt, feats = _spmm_case(50, w, 80, 64, 1.0, w)
+    ops.reset_launches()
+    a = tell.ell_spmm_cuda(nbr, wgt, feats)
+    assert ops.launch_counts()["ell_spmm"] == 1
+    assert torch.equal(a, torch.zeros_like(a))
+
+
+@pytest.mark.parametrize("w,shift,fshift,d", [(32, 1, 0, 64), (256, 1, 0, 70), (32, 0, 1, 64),
+                                             (4, 3, 2, 64), (32, 0, 2, 70)])
+def test_ell_spmm_unaligned_views_take_the_scalar_variants(cuda, w, shift, fshift, d):
+    """Ids and weights 4 bytes into their storage take 4-byte id loads;
+    features 4 or 8 bytes in take narrower feature loads; all agree."""
+    r, n = 60, 500
+    nbr, wgt, feats = _spmm_case(r, w, n, d, 0.3, w + shift + fshift, shift, fshift)
+    out = torch.empty(r, d, device=cuda)
+    vec, fvec = tell.spmm_layout(w, d, torch.float32, nbr.data_ptr(), wgt.data_ptr(),
+                                 feats.data_ptr(), out.data_ptr())
+    assert vec is (shift == 0)
+    assert fvec == {0: 4 if d % 4 == 0 else 2, 1: 1, 2: 2}[fshift]
+    a = tell.ell_spmm_cuda(nbr, wgt, feats)
+    torch.testing.assert_close(a, tell.ell_spmm_plain(nbr, wgt, feats), rtol=1e-5, atol=1e-5)

@@ -25,10 +25,20 @@ from repro_torch.kernels import segment_reduce as tsr
     (torch.float32, 8, "flash_attention_f32"), (torch.float32, 64, "flash_attention_f32"),
     (torch.float32, 128, "flash_attention_f32"), (torch.float32, 12, "flash_attention_f32")])
 def test_flash_route_is_a_function_of_dtype_and_head_dim(dtype, d, kernel):
-    """bfloat16 with D % 8 == 0 goes to the tensor cores (wgmma + TMA, which
-    needs 16-byte row strides); float32 and other bfloat16 widths go to the
-    CUDA cores."""
+    """bfloat16 with D % 8 == 0 goes to wgmma (fed by TMA, which needs
+    16-byte row strides); float32 and other bfloat16 widths go to the TF32
+    mma.sync kernel."""
     assert tfa.route(dtype, d) == kernel
+
+
+@pytest.mark.parametrize("d,dp", [(1, 16), (12, 16), (16, 16), (17, 32), (64, 64), (70, 96),
+                                  (96, 96), (97, 128), (128, 128)])
+def test_tf32_scratch_holds_the_split_planes(d, dp):
+    """The TF32 kernel pads D to 16, 32, 64, 96 or 128 and reads K as 2 DP
+    floats a kv row and V as 4 DP floats a pair of kv rows (an odd Skv pads
+    its last pair), the room the C entry checks."""
+    assert tfa.tf32_padded_dim(d) == dp
+    assert tfa.tf32_scratch_floats(2, 3, 7, d) == 2 * 3 * (7 * 2 * dp + 4 * 4 * dp)
 
 
 def test_both_flash_kernels_and_frontier_pack_are_registered():

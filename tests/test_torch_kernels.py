@@ -323,3 +323,66 @@ def test_packed_slices_take_the_vector_variant():
     assert {s.nbr.shape[1] for s in pack.slices} <= {4, 32, 256}
     for s in pack.slices:
         assert tell.vector_layout(s.nbr.shape[1], s.nbr.data_ptr(), s.wgt.data_ptr())
+
+
+F32, BF16 = torch.float32, torch.bfloat16
+
+
+@pytest.mark.parametrize("w,d,dtype,offs,layout", [
+    # pack_ell's slices at gin-tu's and gatedgcn's widths
+    (4, 64, F32, (0, 0, 0, 0), (True, 4)), (256, 64, F32, (0, 0, 0, 0), (True, 4)),
+    (32, 70, F32, (0, 0, 0, 0), (True, 2)), (32, 70, BF16, (0, 0, 0, 0), (True, 2)),
+    (32, 64, BF16, (0, 0, 0, 0), (True, 8)), (32, 12, BF16, (0, 0, 0, 0), (True, 4)),
+    (32, 10, F32, (0, 0, 0, 0), (True, 2)), (8, 1, F32, (0, 0, 0, 0), (True, 1)),
+    (8, 3, BF16, (0, 0, 0, 0), (True, 1)), (16, 128, F32, (0, 0, 0, 0), (True, 4)),
+    # ids and weights: W % 4 and 16-byte alignment
+    (3, 64, F32, (0, 0, 0, 0), (False, 4)), (32, 64, F32, (4, 0, 0, 0), (False, 4)),
+    (32, 64, F32, (0, 8, 0, 0), (False, 4)), (1, 64, F32, (0, 0, 0, 0), (False, 4)),
+    # features: a view 4 or 8 bytes into its storage, or an output off 16 bytes
+    (32, 64, F32, (0, 0, 4, 0), (True, 1)), (32, 64, F32, (0, 0, 8, 0), (True, 2)),
+    (32, 64, BF16, (0, 0, 2, 0), (True, 1)), (32, 64, BF16, (0, 0, 4, 0), (True, 2)),
+    (32, 64, BF16, (0, 0, 8, 0), (True, 4)), (32, 64, F32, (0, 0, 0, 8), (True, 2))])
+def test_spmm_layout_is_a_function_of_width_features_dtype_and_alignment(w, d, dtype, offs,
+                                                                          layout):
+    """(vec_ids, fvec): 16-byte id and weight loads where W % 4 == 0 and both
+    are 16-byte aligned; the widest feature load (16, 8, 4 or 2 bytes) that
+    divides D and to which feats and out are aligned."""
+    base = 1 << 20
+    ptrs = [base + o for o in offs]
+    assert tell.spmm_layout(w, d, dtype, *ptrs) == layout
+
+
+def test_packed_slices_take_16_byte_loads_in_ell_spmm():
+    from repro_torch.graph import generators as TG
+    from repro_torch.graph import pack_ell as t_pack_ell
+
+    g = TG.rmat(10, 16, seed=1, device="cpu")
+    pack = t_pack_ell(g.inc)
+    feats = torch.zeros(g.n_nodes + 1, 64)
+    out = torch.empty(4, 64)
+    for s in pack.slices:
+        assert tell.spmm_layout(s.nbr.shape[1], 64, F32, s.nbr.data_ptr(), s.wgt.data_ptr(),
+                                feats.data_ptr(), out.data_ptr()) == (True, 4)
+
+
+@pytest.mark.parametrize("r,w,n,d,sentinels", [(16, 32, 100, 64, 0.3), (8, 256, 300, 70, 0.5),
+                                               (24, 4, 50, 8, 1.0)])
+def test_ell_spmm_plain_with_sentinels_mid_row_matches_pallas(r, w, n, d, sentinels):
+    """Sentinel slots anywhere in a row (a neutralized overlay copy puts
+    them mid-row), and a slice with no live slot: the plain version agrees
+    with the Pallas kernel and `ref.py`."""
+    rng = np.random.default_rng(r + w)
+    nbr = rng.integers(0, n, size=(r, w)).astype(np.int32)
+    nbr[rng.random((r, w)) < sentinels] = n
+    wgt = rng.random((r, w)).astype(np.float32)
+    feats = rng.random((n + 1, d)).astype(np.float32)
+    feats[-1] = 0.0
+    j = np.asarray(jell.ell_spmm(jnp.asarray(nbr), jnp.asarray(wgt), jnp.asarray(feats),
+                                 interpret=True))
+    t = tell.ell_spmm_plain(*map(torch.from_numpy, (nbr, wgt, feats)))
+    np.testing.assert_allclose(j, t.numpy(), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(np.asarray(ref.ell_spmm_ref(jnp.asarray(nbr), jnp.asarray(wgt),
+                                                           jnp.asarray(feats))),
+                               t.numpy(), rtol=1e-5, atol=1e-5)
+    if sentinels == 1.0:
+        assert not t.any()
