@@ -25,15 +25,17 @@ Phases (any failure exits non-zero; nothing is caught):
                  D in {1, 3, 64}, num far above E, every id out of range and
                  E = 0, bit-equal to the plain version for min/max and for
                  sum within rtol 1e-5 of it run in float64, identical from
-                 run to run; max
-                 embedding_bag bit-equal; ell_spmm over ragged R,
+                 run to run; embedding_bag with ids from [-V - 3, V + 3),
+                 max bit-equal to the plain version, sum and mean bit-equal
+                 to `embedding_bag_ordered` (its fold order) and to a second
+                 call and within rtol 1e-5 of the plain version; ell_spmm
+                 over ragged R,
                  W in {1, 3, 4, 8, 32, 256}, D in {8, 10, 64, 70, 128}, float32
                  (rtol 1e-5) and bfloat16 (rtol 1.6e-2), with sentinels
                  anywhere in a row (a slice with none live among them), on
                  each layout `spmm_layout` picks (views 4 bytes into their
                  storage among them), each call repeated bit for bit;
-                 embedding_bag sum
-                 and mean (rtol 1e-5); flash_attention over ragged Sq and
+                 flash_attention over ragged Sq and
                  Skv (across the tensor-core kernel's 128-row tiles), Sq <
                  Skv (decode offsets over several kv tiles), causal and not,
                  float32 (2e-4) and bfloat16 (5e-2, and 1e-2 in relative
@@ -67,7 +69,9 @@ Phases (any failure exits non-zero; nothing is caught):
                  the plain version, all Compute x Combine ops; (b) ell_spmm
                  over the same slices at D = 64 (gin-tu) and D = 70
                  (gatedgcn); (c) embedding_bag over DeepFM's table (39 fields
-                 x 100,000 rows x 10), B = 16,384, sum and mean; (d) one
+                 x 100,000 rows x 10), B = 512, 16,384 and 262,144, sum and
+                 mean, each bit-equal to `embedding_bag_ordered` and timed
+                 beside its bound by bytes and by 32-byte sectors; (d) one
                  granite-3-8b attention layer (d_model 4096, 32/8 heads,
                  head_dim 128, B = 4, S = 1024) through
                  `gqa_attention(use_flash=True)` against `use_flash=False`,
@@ -120,6 +124,9 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet, at the 700 W limit
 F32_OPS_PER_S = 67e12          # float32 outside the tensor cores
 TF32_OPS_PER_S = 495e12        # dense TF32 on the tensor cores (H100 SXM data sheet)
 BF16_OPS_PER_S = 989e12        # dense bf16 on the tensor cores (H100 SXM data sheet)
+#: embedding_bag's batches over DeepFM's table: serve_p99 and serve_bulk
+#: (src/repro/configs/registry.py:37-38), and 16,384 between them
+BAG_BATCHES = (512, 16_384, 262_144)
 
 
 def log(msg: str) -> None:
@@ -447,11 +454,16 @@ def sweep_spmm(dev, rng, ell) -> float:
 
 
 def sweep_bag(dev, rng, bag) -> float:
+    """embedding_bag with ids drawn from [-V - 3, V + 3) (wrapped, then
+    clamped): sum and mean bit-equal to `embedding_bag_ordered` (its fold
+    order) and to a second call, within rtol 1e-5 of the plain version; max
+    bit-equal to the plain version."""
     worst = 0.0
     for v, d, b, k in [(1000, 10, 100, 39), (50, 64, 33, 4), (70, 70, 5, 1),
-                       (300, 3, 17, 200), (500, 128, 64, 8), (40, 1, 9, 2), (90, 256, 3, 3)]:
+                       (300, 3, 17, 200), (500, 128, 64, 8), (40, 1, 9, 2), (90, 256, 3, 3),
+                       (2000, 10, 4001, 39), (80, 10, 13, 1)]:
         table = torch.from_numpy(rng.standard_normal((v, d)).astype(np.float32)).to(dev)
-        idx = torch.from_numpy(rng.integers(0, v, size=(b, k)).astype(np.int32)).to(dev)
+        idx = torch.from_numpy(rng.integers(-v - 3, v + 3, size=(b, k)).astype(np.int32)).to(dev)
         for mode in bag.MODES:
             a = bag.embedding_bag_cuda(table, idx, mode)
             p = bag.embedding_bag_plain(table, idx, mode)
@@ -460,6 +472,11 @@ def sweep_bag(dev, rng, bag) -> float:
                 if not bit_equal(a, p):
                     raise AssertionError(f"embedding_bag max V={v} D={d} differs")
             else:
+                if not bit_equal(a, bag.embedding_bag_ordered(table, idx, mode)):
+                    raise AssertionError(f"embedding_bag {mode} V={v} D={d} K={k} differs "
+                                         "from embedding_bag_ordered")
+                if not bit_equal(a, bag.embedding_bag_cuda(table, idx, mode)):
+                    raise AssertionError(f"embedding_bag {mode} V={v} D={d} not deterministic")
                 torch.testing.assert_close(a, p, rtol=1e-5, atol=1e-5)
                 worst = max(worst, abs_err(a, p))
     return worst
@@ -597,6 +614,72 @@ def profile_runs(engine, progs, g, pack, cfg, top: int = 8) -> None:
             log(f"[profile]   {dev_us(e) / 1e3:9.2f} ms {e.count:6d}x  {e.key[:90]}")
 
 
+def check_bags(bag, table, idx, bags, report, err) -> None:
+    """Phase 6(c): each batch of BAG_BATCHES (a prefix of `idx`, one id a
+    field of DeepFM's table), sum and mean from the counted run `bags`,
+    bit-equal to `embedding_bag_ordered` and within rtol 1e-5 of the plain
+    version; each timed beside its bound by bytes (each distinct row once)
+    and by the 32-byte sectors those rows touch, the plain version and
+    F.embedding_bag. Fills report["embedding_bag"] (the middle batch's sum
+    at the top, every batch under `sizes`)."""
+    fields, dim = idx.shape[1], table.shape[1]
+    b_err, sizes = 0.0, []
+    for nb in BAG_BATCHES:
+        ids = idx[:nb]
+        ids64 = ids.long()
+        for mode in ("sum", "mean"):
+            o = bags[(nb, mode)]
+            if not bit_equal(o, bag.embedding_bag_ordered(table, ids, mode)):
+                raise AssertionError(f"embedding_bag {mode} B={nb} differs from "
+                                     "embedding_bag_ordered")
+            pl = bag.embedding_bag_plain(table, ids, mode)
+            torch.testing.assert_close(o, pl, rtol=1e-5, atol=1e-5)
+            b_err = max(b_err, abs_err(o, pl))
+            lib_diff = abs_err(o, F.embedding_bag(ids64, table, mode=mode))
+            log(f"[6 slice] (c) embedding_bag B={nb} {mode}: bit-equal to "
+                f"embedding_bag_ordered, within rtol 1e-5 of plain (max abs err "
+                f"{abs_err(o, pl):.3g}); max |kernel - F.embedding_bag| {lib_diff:.3g}")
+        rows = torch.unique(ids).long()
+        start = rows * (dim * 4)                                  # byte offset of each row
+        sectors = int(((start + dim * 4 - 1) // 32 - start // 32 + 1).sum())
+        other = ids.numel() * 4 + nb * dim * 4                    # ids and output
+        bnd = bound_ms(rows.numel() * dim * 4 + other, nb * fields * dim)
+        size = dict(
+            batch=nb, distinct_rows=rows.numel(), sectors=sectors,
+            ms=graph_ms(lambda: bag.embedding_bag_cuda(table, ids, "sum")),
+            mean_ms=graph_ms(lambda: bag.embedding_bag_cuda(table, ids, "mean")),
+            plain_ms=cuda_ms(lambda: bag.embedding_bag_plain(table, ids, "sum"), 5),
+            library_ms=graph_ms(lambda: F.embedding_bag(ids64, table, mode="sum")),
+            library_mean_ms=graph_ms(lambda: F.embedding_bag(ids64, table, mode="mean")),
+            bound_ms=bnd[0], bound_by=bnd[1],
+            sector_bound_ms=bound_ms(sectors * 32 + other, nb * fields * dim)[0])
+        if nb == BAG_BATCHES[1]:
+            size.update(
+                wrapper_loop_ms=cuda_ms(lambda: bag.embedding_bag_cuda(table, ids, "sum"),
+                                        50, 5, 7),
+                library_loop_ms=cuda_ms(lambda: F.embedding_bag(ids64, table, mode="sum"),
+                                        50, 5, 7))
+        sizes.append(size)
+        log(f"[6 slice] (c) embedding_bag B={nb}: card {size['ms']:.4f} ms sum, "
+            f"{size['mean_ms']:.4f} mean (CUDA graphs); bound {size['bound_ms']:.4f} by bytes "
+            f"({rows.numel()} distinct rows), {size['sector_bound_ms']:.4f} by 32-byte sectors "
+            f"({sectors}); plain {size['plain_ms']:.4f}; F.embedding_bag "
+            f"{size['library_ms']:.4f} sum, {size['library_mean_ms']:.4f} mean")
+    main = sizes[1]
+    report["embedding_bag"] = dict(
+        replaces="src/repro/kernels/embedding_bag.py:24",
+        shape=f"table {table.shape[0]}x{dim} float32, B={main['batch']}, K={fields}, sum "
+              f"(B={BAG_BATCHES}: `sizes`)",
+        max_abs_err=max(b_err, err["embedding_bag"]),
+        **{key: main[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                      "sector_bound_ms", "wrapper_loop_ms", "library_loop_ms")},
+        sizes=sizes)
+    r = report["embedding_bag"]
+    log(f"[6 slice] (c) embedding_bag B={main['batch']} sum through the Python function "
+        f"{r['wrapper_loop_ms']:.4f} ms against F.embedding_bag's {r['library_loop_ms']:.4f} "
+        "ms a call")
+
+
 def slice_phase(dev, pack, ops, ell, bag, fa, L, report, err, rounded) -> dict:
     """Phase 6: the kernel library's second slice at full width. Drives the
     overlay, ell_spmm, embedding_bag and the flash kernel through `ops` and
@@ -615,11 +698,12 @@ def slice_phase(dev, pack, ops, ell, bag, fa, L, report, err, rounded) -> dict:
     for d in (64, 70):                          # gin-tu, gatedgcn hidden widths
         feats[d] = torch.rand(n + 1, d, device=dev, generator=gen)
         feats[d][n] = 0.0
-    fields, per_field, dim, nbag = 39, 100_000, 10, 16_384    # DeepFM (models/deepfm.py)
+    fields, per_field, dim = 39, 100_000, 10            # DeepFM (models/deepfm.py)
     table = torch.randn(fields * per_field, dim, device=dev, generator=gen)
+    # one id a field; each batch of BAG_BATCHES is a prefix of one draw
     idx = (torch.arange(fields, device=dev, dtype=torch.int32) * per_field
-           + torch.randint(0, per_field, (nbag, fields), device=dev, generator=gen,
-                           dtype=torch.int32))
+           + torch.randint(0, per_field, (max(BAG_BATCHES), fields), device=dev,
+                           generator=gen, dtype=torch.int32))
     d_model, hq, hkv, dh, batch, seq = 4096, 32, 8, 128, 4, 1024   # granite-3-8b
     bf16 = torch.bfloat16
 
@@ -640,7 +724,8 @@ def slice_phase(dev, pack, ops, ell, bag, fa, L, report, err, rounded) -> dict:
     over = {c: [ops.ell_combine(s.nbr, s.wgt, vals, *c, dead=dd) for s, dd in zip(slices, deads)]
             for c in combos}
     spmm = {d: [ops.ell_spmm(s.nbr, s.wgt, f) for s in slices] for d, f in feats.items()}
-    bags = {mode: ops.embedding_bag(table, idx, mode) for mode in ("sum", "mean")}
+    bags = {(nb, mode): ops.embedding_bag(table, idx[:nb], mode)
+            for nb in BAG_BATCHES for mode in ("sum", "mean")}
     h = L.rms_norm(x, params["attn_norm"])
     attn, (k, v) = L.gqa_attention(h, params, n_heads=hq, n_kv=hkv, positions=pos,
                                    use_flash=True)
@@ -730,32 +815,8 @@ def slice_phase(dev, pack, ops, ell, bag, fa, L, report, err, rounded) -> dict:
         request_tb_per_s_d70=real * 70 * 4 / times[70][0] / 1e9, library_ms=times[d][2])
 
     # -- (c) embedding_bag ----------------------------------------------------
-    idx64 = idx.long()
-    b_err = 0.0
-    for mode, o in bags.items():
-        pl = bag.embedding_bag_plain(table, idx, mode)
-        torch.testing.assert_close(o, pl, rtol=1e-5, atol=1e-5)
-        b_err = max(b_err, abs_err(o, pl))
-        lib_diff = abs_err(o, F.embedding_bag(idx64, table, mode=mode))
-        log(f"[6 slice] (c) embedding_bag {mode}: within rtol 1e-5 of plain "
-            f"(max abs err {abs_err(o, pl):.3g}); max |kernel - F.embedding_bag| {lib_diff:.3g}")
-    uniq = int(torch.unique(idx).numel())
-    bnd = bound_ms(uniq * dim * 4 + idx.numel() * 4 + nbag * dim * 4, nbag * fields * dim)
-    report["embedding_bag"] = dict(
-        replaces="src/repro/kernels/embedding_bag.py:24",
-        shape=f"table {fields * per_field}x{dim} float32, B={nbag}, K={fields}, sum",
-        max_abs_err=max(b_err, err["embedding_bag"]),
-        ms=graph_ms(lambda: bag.embedding_bag_cuda(table, idx, "sum")),
-        plain_ms=cuda_ms(lambda: bag.embedding_bag_plain(table, idx, "sum"), 5),
-        bound_ms=bnd[0], bound_by=bnd[1],
-        library_ms=graph_ms(lambda: F.embedding_bag(idx64, table, mode="sum")),
-        wrapper_loop_ms=cuda_ms(lambda: bag.embedding_bag_cuda(table, idx, "sum"), 50, 5, 7),
-        library_loop_ms=cuda_ms(lambda: F.embedding_bag(idx64, table, mode="sum"), 50, 5, 7))
-    r = report["embedding_bag"]
-    log(f"[6 slice] (c) embedding_bag sum: card {r['ms']:.4f} ms against F.embedding_bag's "
-        f"{r['library_ms']:.4f} ms (both CUDA graphs); through the Python function "
-        f"{r['wrapper_loop_ms']:.4f} ms against {r['library_loop_ms']:.4f} ms a call")
-    del bags, table, idx, idx64
+    check_bags(bag, table, idx, bags, report, err)
+    del bags, table, idx
 
     # -- (d) the granite-3-8b attention layer --------------------------------
     # Outputs here are small (a row averages many values of v: rms ~0.12), so

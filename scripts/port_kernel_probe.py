@@ -8,6 +8,8 @@
     python3 scripts/port_kernel_probe.py tiers
     python3 scripts/port_kernel_probe.py flash32 [--root DIR] [--parent DIR]
     python3 scripts/port_kernel_probe.py spmm [--root DIR] [--parent DIR]
+    python3 scripts/port_kernel_probe.py bag [--root DIR] [--parent DIR]
+    python3 scripts/port_kernel_probe.py bagvar [--parent DIR]
 
 tiles    — builds `csrc/flash_attention_wgmma.cu` with -DFLASH_WGMMA_PROBE
            into `build/probe/` (the same kernel, whose kv-tile width and
@@ -70,6 +72,24 @@ spmm     — `ell_spmm` over the four ELL slices of RMAT scale 22 (edge
            kernel on the same slices with every live id replaced by a
            uniform draw from [0, n): the rate of row requests when hubs
            give L2 nothing to reuse. CUDA events.
+bag      — `embedding_bag_cuda` on DeepFM's table (39 x 100,000 rows x 10,
+           one id a field) at B = 512, 16,384 and 262,144, sum and mean,
+           beside `F.embedding_bag` and an empty kernel (built here into
+           `build/probe/`: one block, and the grid the kernel launches at
+           B = 512), all by CUDA-graph replay (median of 7 batches of 50);
+           each output within rtol 1e-5 of the first tree's, the change's
+           bit-equal to its `embedding_bag_ordered`; then, for each batch,
+           a replay whose every call takes a new window of bags (rows that
+           L2 does not hold, as for a server's next batch); --root and
+           --parent as for flash32.
+bagvar   — builds copies of `csrc/embedding_bag.cu` with other gathers in
+           flight a lane, threads a block, register caps and row groups a
+           bag (`BAG_VARIANTS`) into `build/probe/`, and the parent's source
+           with --parent; holds each bit-equal to `embedding_bag_ordered`
+           (for its number of row groups) at DeepFM's three batch sizes, then
+           times each on ids confined to 19.5 MB of rows (L2 holds them),
+           and twice on the whole table (same bags each call, and a new
+           window each call). CUDA-graph replay.
 
 It fails where there is no GPU or a variant does not build or disagrees.
 """
@@ -89,7 +109,7 @@ import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
-from chip_smoke import card_line, cuda_ms, graph_ms, host_us  # noqa: E402
+from chip_smoke import BAG_BATCHES, card_line, cuda_ms, graph_ms, host_us  # noqa: E402
 
 #: the probe entry's C parameters: flash_attention_wgmma_launch's, with the
 #: kv-tile width and the ring depth before the stream
@@ -423,6 +443,205 @@ def combine(dev, root: Path, parent) -> None:
                 log(f"[combine] change: {what}: {e.key[:60]} {us / 10:.2f} us a call")
 
 
+EMPTY_SOURCE = r"""
+#include <cuda_runtime.h>
+__global__ void empty_kernel() {}
+extern "C" int empty_launch(int blocks, int threads, void* stream) {
+  empty_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def empty_kernel(dev):
+    """A launcher of an empty kernel, built by nvcc into build/probe/:
+    `launch(blocks, threads)` on PyTorch's current stream."""
+    from repro_torch.kernels import _build
+
+    out = _build.BUILD_DIR.parent / "probe"
+    out.mkdir(parents=True, exist_ok=True)
+    src, lib = out / "empty.cu", out / "libempty.so"
+    src.write_text(EMPTY_SOURCE)
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(src)],
+                          capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise RuntimeError(f"the empty kernel did not build:\n{proc.stdout}{proc.stderr}")
+    fn = ctypes.CDLL(str(lib)).empty_launch
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lambda blocks, threads: _build.check(fn(blocks, threads, _build.stream_of(dev)),
+                                                "empty kernel")
+
+
+COLD_WINDOWS = 64       # calls a cold replay cycles through (distinct bags)
+COLD_SETS = 8           # draws of the largest batch behind the cold windows
+
+
+def deepfm_ids(dev, gen, bags: int):
+    """(bags, 39) int32 ids, one a field of DeepFM's 39 x 100,000 table."""
+    fields, per_field = 39, 100_000
+    return (torch.arange(fields, device=dev, dtype=torch.int32) * per_field
+            + torch.randint(0, per_field, (bags, fields), device=dev, generator=gen,
+                            dtype=torch.int32))
+
+
+def cold_ms(fn, ids, nb: int) -> float:
+    """graph_ms of `fn(window)` over up to COLD_WINDOWS windows of `nb` bags
+    from `ids`, one a call in turn: each call's rows were last read at least
+    ~80 MB of other rows ago, so L2 holds little of them, as for a server's
+    next batch (the same window every call would find its rows in L2)."""
+    windows = [ids[w * nb:(w + 1) * nb] for w in range(min(COLD_WINDOWS, ids.shape[0] // nb))]
+    turn = iter(range(1 << 30))
+    return graph_ms(lambda: fn(windows[next(turn) % len(windows)]), per=COLD_WINDOWS)
+
+
+def bag_probe(dev, root: Path, parent) -> None:
+    order = trees_in_turns(root, parent, ("embedding_bag",))
+    empty = empty_kernel(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(16)
+    table = torch.randn(39 * 100_000, 10, device=dev, generator=gen)
+    many = deepfm_ids(dev, gen, COLD_SETS * max(BAG_BATCHES))
+    many64 = many.long()
+    idx, idx64 = many[:max(BAG_BATCHES)], many64[:max(BAG_BATCHES)]
+    # the change's grid at B = 512: one warp a bag, 4 warps a block
+    small_grid = -(-512 * 32 // 128)
+    ref = {}
+    for label, mod in order:
+        floor = (graph_ms(lambda: empty(1, 128)), graph_ms(lambda: empty(small_grid, 128)))
+        log(f"[bag] {label}: empty kernel {floor[0]:.4f} ms (1 block), {floor[1]:.4f} ms "
+            f"({small_grid} blocks of 128)")
+        for nb in BAG_BATCHES:
+            ids, ids64 = idx[:nb], idx64[:nb]
+            for mode in ("sum", "mean"):
+                got = mod.embedding_bag_cuda(table, ids, mode)
+                if (nb, mode) not in ref:
+                    ref[(nb, mode)] = got
+                torch.testing.assert_close(got, ref[(nb, mode)], rtol=1e-5, atol=1e-5)
+                if label == "change" and not torch.equal(
+                        got.view(torch.int32),
+                        mod.embedding_bag_ordered(table, ids, mode).view(torch.int32)):
+                    raise AssertionError(f"B={nb} {mode}: not bit-equal to "
+                                         "embedding_bag_ordered")
+                ms = graph_ms(lambda: mod.embedding_bag_cuda(table, ids, mode))
+                lib = graph_ms(lambda: F.embedding_bag(ids64, table, mode=mode))
+                log(f"[bag] {label}: B={nb} {mode}: {ms:.4f} ms, F.embedding_bag {lib:.4f} ms")
+            cold = cold_ms(lambda w: mod.embedding_bag_cuda(table, w, "sum"), many, nb)
+            lib = cold_ms(lambda w: F.embedding_bag(w, table, mode="sum"), many64, nb)
+            log(f"[bag] {label}: B={nb} sum, a new window of bags each call: {cold:.4f} ms, "
+                f"F.embedding_bag {lib:.4f} ms")
+
+
+#: the shipped lines of csrc/embedding_bag.cu that `bagvar` rewrites in a
+#: copy, and what each variant writes in their place
+BAG_KNOBS = {
+    "loads": "constexpr int LOADS = 8;",
+    "threads": "constexpr int THREADS = 128;",
+    "bounds": "__launch_bounds__(THREADS)\n",
+    "groups": "const int groups = WARP / lanes < K ? WARP / lanes : K;",
+}
+#: (name, {knob: replacement}, row groups cap); the first is the source as
+#: is; the caps assume K >= 3, as DeepFM's 39
+BAG_VARIANTS = [
+    ("as is", {}, None),
+    ("4 loads a lane", {"loads": "constexpr int LOADS = 4;"}, None),
+    ("16 loads a lane", {"loads": "constexpr int LOADS = 16;"}, None),
+    ("32 registers", {"bounds": "__launch_bounds__(THREADS, 16)\n"}, None),
+    ("256 threads", {"threads": "constexpr int THREADS = 256;"}, None),
+    ("3 groups (2 bags a warp)",
+     {"groups": "const int groups = WARP / lanes < 3 ? WARP / lanes : 3;"}, 3),
+    ("2 groups (3 bags a warp)",
+     {"groups": "const int groups = WARP / lanes < 2 ? WARP / lanes : 2;"}, 2),
+    ("1 group (6 bags a warp)", {"groups": "const int groups = 1;"}, 1),
+    ("1 group, 4 loads a lane", {"groups": "const int groups = 1;",
+                                 "loads": "constexpr int LOADS = 4;"}, 1),
+]
+
+
+def bag_variant_source(out: Path, k: int, changes: dict) -> Path:
+    """A copy of csrc/embedding_bag.cu under `out` with the knob lines
+    replaced; each shipped line must appear exactly once."""
+    from repro_torch.kernels import _build
+
+    text = (_build.CSRC / "embedding_bag.cu").read_text()
+    for knob, new in changes.items():
+        if text.count(BAG_KNOBS[knob]) != 1:
+            raise RuntimeError(f"bagvar: {BAG_KNOBS[knob]!r} is not once in embedding_bag.cu")
+        text = text.replace(BAG_KNOBS[knob], new)
+    path = out / f"embedding_bag_v{k}.cu"
+    path.write_text(text)
+    return path
+
+
+def bag_variants(dev, parent) -> None:
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import embedding_bag as bag
+
+    out = _build.BUILD_DIR.parent / "probe"
+    out.mkdir(parents=True, exist_ok=True)
+    sources = [(name, bag_variant_source(out, k, changes), cap)
+               for k, (name, changes, cap) in enumerate(BAG_VARIANTS)]
+    if parent is not None:
+        sources.append(("parent", parent / "src/repro_torch/csrc/embedding_bag.cu", None))
+    caps = {name: cap for name, _, cap in sources}
+    jobs = {}
+    for k, (name, src, _) in enumerate(sources):
+        lib = out / f"libembedding_bag_v{k}.so"
+        jobs[name] = (lib, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o", str(lib),
+             str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    fns = {}
+    for name, (lib, proc) in jobs.items():
+        report = proc.communicate(timeout=600)[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"variant {name} failed to build:\n{report[-3000:]}")
+        regs = re.findall(r"bag_kernelILi0ELi2ELi1E\S*\n.*\n.*Used (\d+) registers", report)
+        log(f"[bagvar] {name}: sum, 8-byte loads, one load a row: registers {regs}")
+        fn = ctypes.CDLL(str(lib)).embedding_bag_launch
+        fn.argtypes = list(bag._ARGTYPES)
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+
+    def run(fn, table, ids, mode="sum"):
+        o = torch.empty(ids.shape[0], table.shape[1], device=dev)
+        _build.check(fn(table.data_ptr(), ids.data_ptr(), o.data_ptr(), ids.shape[0],
+                        ids.shape[1], table.shape[1], table.shape[0], bag.MODES[mode],
+                        _build.stream_of(dev)), "variant")
+        return o
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(16)
+    table = torch.randn(39 * 100_000, 10, device=dev, generator=gen)
+    many = deepfm_ids(dev, gen, COLD_SETS * max(BAG_BATCHES))
+    idx = many[:max(BAG_BATCHES)]
+    for name, fn in fns.items():
+        for nb in BAG_BATCHES:
+            for mode in ("sum", "mean"):
+                a = run(fn, table, idx[:nb], mode)
+                groups = bag.bag_layout(table.shape[1], idx.shape[1], table.data_ptr())[2]
+                o = bag.embedding_bag_ordered(table, idx[:nb], mode,
+                                              min(groups, caps[name] or groups))
+                if name != "parent" and not torch.equal(a.view(torch.int32), o.view(torch.int32)):
+                    raise AssertionError(f"variant {name} B={nb} {mode} differs")
+                torch.testing.assert_close(a, o, rtol=1e-5, atol=1e-5)
+    # the same batches with ids in the first 12,500 rows of each field: 19.5
+    # MB of rows, which L2 holds; a time far below the full table's says
+    # device memory, not the L2's request rate, sets the full table's time
+    near = (torch.arange(39, device=dev, dtype=torch.int32) * 100_000
+            + torch.randint(0, 12_500, (max(BAG_BATCHES), 39), device=dev, generator=gen,
+                            dtype=torch.int32))
+    for name, fn in fns.items():
+        log(f"[bagvar] {name}: ids in 19.5 MB of rows, same bags each call "
+            f"{[round(graph_ms(lambda: run(fn, table, near[:nb])), 4) for nb in BAG_BATCHES]} ms")
+    for rnd in range(2):
+        for name, fn in fns.items():
+            warm = [graph_ms(lambda: run(fn, table, idx[:nb])) for nb in BAG_BATCHES]
+            cold = [cold_ms(lambda w: run(fn, table, w), many, nb) for nb in BAG_BATCHES]
+            log(f"[bagvar] round {rnd}: {name}: same bags each call "
+                f"{[round(x, 4) for x in warm]} ms, new bags each call "
+                f"{[round(x, 4) for x in cold]} ms (B = {list(BAG_BATCHES)})")
+
+
 #: (thread-tier limit, sub-tiles a chunk); the first ships
 TIER_VARIANTS = [(8, 4), (4, 4), (16, 4), (8, 8), (8, 2)]
 
@@ -501,11 +720,11 @@ def tiers(dev) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("probe", choices=("tiles", "pack", "wrappers", "combine", "tiers",
-                                      "flash32", "spmm"))
+                                      "flash32", "spmm", "bag", "bagvar"))
     ap.add_argument("--root", type=Path, default=ROOT,
                     help="checkout whose src/repro_torch the wrappers and combine probes time")
     ap.add_argument("--parent", type=Path, default=None,
-                    help="combine, flash32, spmm: also time the tree under this "
+                    help="combine, flash32, spmm, bag: also time the tree under this "
                          "checkout, in turns")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -513,12 +732,14 @@ def main() -> int:
         return 1
     dev = torch.device("cuda")
     log(f"[card] {card_line()}")
-    if args.probe in ("combine", "flash32", "spmm"):
-        {"combine": combine, "flash32": flash32, "spmm": spmm}[args.probe](
+    if args.probe in ("combine", "flash32", "spmm", "bag"):
+        {"combine": combine, "flash32": flash32, "spmm": spmm, "bag": bag_probe}[args.probe](
             dev, args.root, args.parent)
         return 0
     import_port(args.root if args.probe == "wrappers" else ROOT)
-    if args.probe == "tiles":
+    if args.probe == "bagvar":
+        bag_variants(dev, args.parent)
+    elif args.probe == "tiles":
         flash_tiles(dev)
     elif args.probe == "tiers":
         tiers(dev)

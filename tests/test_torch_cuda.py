@@ -238,19 +238,84 @@ def test_ell_spmm_matches_plain(cuda, r, w, n, d, dtype):
         torch.testing.assert_close(a.float(), b.float(), rtol=1.6e-2, atol=1e-2)
 
 
-@pytest.mark.parametrize("v,d,b,k", [(1000, 10, 100, 39), (50, 64, 33, 4), (70, 70, 5, 1),
-                                     (300, 3, 17, 200)])
-@pytest.mark.parametrize("mode", ["sum", "mean", "max"])
-def test_embedding_bag_matches_plain(cuda, v, d, b, k, mode):
-    rng = np.random.default_rng(v + k)
-    table = torch.from_numpy(rng.standard_normal((v, d)).astype(np.float32)).to(cuda)
-    idx = torch.from_numpy(rng.integers(0, v, (b, k)).astype(np.int32)).to(cuda)
+#: D in {1, 3, 10, 64, 70, 128, 256} x K in {1, 39, 200} at B = 37 (not a
+#: multiple of a block's bags), then B = 0, a B of whole blocks plus one,
+#: several bags a warp with a ragged last warp, and the shapes of before
+BAG_CARD_SHAPES = ([(300, d, 37, k) for d in (1, 3, 10, 64, 70, 128, 256) for k in (1, 39, 200)]
+                   + [(500, 10, 0, 39), (500, 64, 0, 1), (2000, 10, 4001, 39),
+                      (80, 10, 13, 1), (30, 1, 50, 2), (1000, 10, 100, 39),
+                      (50, 64, 33, 4), (70, 70, 5, 1), (300, 3, 17, 200)])
+
+
+def _same_bits(a, b):
+    """Bit-equal, a NaN anywhere matching a NaN (its payload aside)."""
+    nan = torch.isnan(a)
+    return (a.shape == b.shape and torch.equal(nan, torch.isnan(b))
+            and torch.equal(_bits(a)[~nan], _bits(b)[~nan]))
+
+
+def _check_bag(table, idx, mode):
+    """Sum and mean bit-equal to `embedding_bag_ordered` and to a second call;
+    max bit-equal to the plain version; all within rtol 1e-5 of plain."""
     a = tbag.embedding_bag_cuda(table, idx, mode)
     p = tbag.embedding_bag_plain(table, idx, mode)
     if mode == "max":
-        assert torch.equal(a, p)
+        assert _same_bits(a, p)
     else:
-        torch.testing.assert_close(a, p, rtol=1e-5, atol=1e-5)
+        assert _same_bits(a, tbag.embedding_bag_ordered(table, idx, mode))
+        assert _same_bits(a, tbag.embedding_bag_cuda(table, idx, mode))
+        fin = torch.isfinite(p)
+        torch.testing.assert_close(a[fin], p[fin], rtol=1e-5, atol=1e-5)
+    return a
+
+
+@pytest.mark.parametrize("v,d,b,k", BAG_CARD_SHAPES)
+@pytest.mark.parametrize("mode", ["sum", "mean", "max"])
+def test_embedding_bag_matches_plain(cuda, v, d, b, k, mode):
+    """Ids from [-V - 3, V + 3): wrapped and clamped as the plain version."""
+    rng = np.random.default_rng(v + k + d + b)
+    table = torch.from_numpy(rng.standard_normal((v, d)).astype(np.float32)).to(cuda)
+    idx = torch.from_numpy(rng.integers(-v - 3, v + 3, (b, k)).astype(np.int32)).to(cuda)
+    assert _check_bag(table, idx, mode).shape == (b, d)
+
+
+@pytest.mark.parametrize("idx,want", [
+    ([[-1, 0], [5, -5]], {"sum": [[9, 11, 13], [9, 11, 13]]}),
+    ([[-9, 0], [4, -4]], {"max": [[0, 1, 2], [9, 10, 11]]})])
+def test_embedding_bag_wraps_negative_ids_on_the_card(cuda, idx, want):
+    table = torch.arange(12, dtype=torch.float32, device=cuda).reshape(4, 3)
+    ids = torch.tensor(idx, dtype=torch.int32, device=cuda)
+    for mode in ("sum", "mean", "max"):
+        out = _check_bag(table, ids, mode)
+        assert torch.equal(out.cpu(), tbag.embedding_bag_plain(table.cpu(), ids.cpu(), mode))
+        if mode in want:
+            assert out.tolist() == want[mode]
+
+
+@pytest.mark.parametrize("d", [10, 64, 3])
+def test_embedding_bag_nan_propagates(cuda, d):
+    rng = np.random.default_rng(d)
+    t = rng.standard_normal((50, d)).astype(np.float32)
+    t[7, d // 2] = np.nan
+    table = torch.from_numpy(t).to(cuda)
+    idx = torch.from_numpy(rng.integers(0, 50, (20, 39)).astype(np.int32)).to(cuda)
+    idx[3, 11] = 7
+    for mode in ("sum", "mean", "max"):
+        out = _check_bag(table, idx, mode)
+        assert bool(torch.isnan(out[3, d // 2])), mode
+
+
+@pytest.mark.parametrize("d,shift", [(64, 1), (10, 1), (64, 2), (128, 3)])
+def test_embedding_bag_unaligned_table_view(cuda, d, shift):
+    """A table view `shift` floats into its storage takes narrower loads;
+    `bag_layout` names them, and the fold order follows."""
+    rng = np.random.default_rng(d + shift)
+    flat = torch.from_numpy(rng.standard_normal(200 * d + shift).astype(np.float32)).to(cuda)
+    table = flat[shift:].view(200, d)
+    idx = torch.from_numpy(rng.integers(-203, 203, (45, 39)).astype(np.int32)).to(cuda)
+    assert tbag.bag_layout(d, 39, table.data_ptr())[0] < tbag.bag_layout(d, 39, 4096)[0]
+    for mode in ("sum", "mean", "max"):
+        _check_bag(table, idx, mode)
 
 
 @pytest.mark.parametrize("b,hq,hkv,sq,skv,d", [(1, 2, 2, 32, 32, 16), (2, 4, 2, 64, 64, 32),

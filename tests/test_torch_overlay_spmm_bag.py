@@ -15,6 +15,7 @@ from repro.kernels import ref
 from repro.kernels.embedding_bag import embedding_bag as jbag
 from repro_torch.kernels import ops
 from repro_torch.kernels import ell_spmv as tell
+from repro_torch.kernels import embedding_bag as tbag
 
 BIG = np.float32(np.finfo(np.float32).max / 4)
 
@@ -146,3 +147,103 @@ def test_embedding_bag_max_follows_ref_not_the_pallas_kernel():
     t = ops.embedding_bag(_t(table), _t(idx), "max").numpy()
     assert np.array_equal(t, table[idx].max(axis=1))
     assert not np.allclose(t, pallas)
+
+
+#: ROADMAP fault 1: [-V, -1] wraps to idx + V; below -V, V is added once and
+#: the result clamped, as `table[idx]` gathers in JAX (with the rows that
+#: `ref.py` gives in one mode, table = arange(12).reshape(4, 3))
+WRAP_CASES = [([[-1, 0], [5, -5]], "sum", [[9, 11, 13], [9, 11, 13]]),
+              ([[-9, 0], [4, -4]], "max", [[0, 1, 2], [9, 10, 11]])]
+
+
+@pytest.mark.parametrize("idx,known_mode,known", WRAP_CASES)
+@pytest.mark.parametrize("mode", ["sum", "mean", "max"])
+def test_embedding_bag_wraps_negative_ids_as_ref(idx, known_mode, known, mode):
+    table = np.arange(12, dtype=np.float32).reshape(4, 3)
+    idx = np.array(idx, np.int32)
+    r = np.asarray(ref.embedding_bag_ref(jnp.asarray(table), jnp.asarray(idx), mode))
+    t = ops.embedding_bag(_t(table), _t(idx), mode).numpy()
+    assert np.array_equal(r, t)            # small integers: every mode is exact
+    o = tbag.embedding_bag_ordered(_t(table), _t(idx), mode).numpy()
+    assert np.array_equal(r, o)
+    if mode == known_mode:
+        assert t.tolist() == known
+
+
+@pytest.mark.parametrize("mode", ["sum", "mean", "max"])
+def test_embedding_bag_ids_at_v_and_beyond_clamp_as_ref(mode):
+    v = 7
+    table = np.random.default_rng(3).standard_normal((v, 5)).astype(np.float32)
+    idx = np.array([[v, 0, v + 1], [2 ** 31 - 1, -v, -v - 1], [-2 ** 31, 3, 6],
+                    [v + 5, -1, 2 * v]], np.int32)
+    r = np.asarray(ref.embedding_bag_ref(jnp.asarray(table), jnp.asarray(idx), mode))
+    t = ops.embedding_bag(_t(table), _t(idx), mode).numpy()
+    np.testing.assert_allclose(r, t, rtol=1e-5, atol=1e-6)
+    want = tbag.wrap_indices(_t(idx), v).numpy()
+    assert np.array_equal(want, [[6, 0, 6], [6, 0, 0], [0, 3, 6], [6, 6, 6]])
+
+
+ORDERED_SHAPES = BAG_SHAPES + [(500, 10, 16, 39), (90, 10, 9, 1), (40, 64, 5, 1),
+                               (300, 3, 6, 200), (60, 256, 3, 7)]
+
+
+@pytest.mark.parametrize("v,d,b,k", ORDERED_SHAPES)
+@pytest.mark.parametrize("mode", ["sum", "mean", "max"])
+def test_embedding_bag_ordered_matches_plain_and_ref(v, d, b, k, mode):
+    """The model of the kernel's fold order is another order of the same
+    float32 adds (rtol 1e-5 of the plain version and of ref.py) and the same
+    max, bit for bit; ids are drawn from [-V - 3, V + 3)."""
+    rng = np.random.default_rng(v + d + k)
+    table = rng.standard_normal((v, d)).astype(np.float32)
+    idx = rng.integers(-v - 3, v + 3, size=(b, k)).astype(np.int32)
+    o = tbag.embedding_bag_ordered(_t(table), _t(idx), mode)
+    p = tbag.embedding_bag_plain(_t(table), _t(idx), mode)
+    r = np.asarray(ref.embedding_bag_ref(jnp.asarray(table), jnp.asarray(idx), mode))
+    assert o.shape == (b, d) and o.dtype == torch.float32
+    np.testing.assert_allclose(o.numpy(), p.numpy(), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(o.numpy(), r, rtol=1e-5, atol=1e-6)
+    if mode == "max":
+        assert torch.equal(o, p)
+
+
+@pytest.mark.parametrize("d,k,shift,layout", [
+    (10, 39, 0, (2, 5, 6)), (10, 1, 0, (2, 5, 1)), (64, 39, 0, (4, 16, 2)),
+    (70, 39, 0, (2, 32, 1)), (128, 8, 0, (4, 32, 1)), (256, 3, 0, (4, 32, 1)),
+    (3, 200, 0, (1, 3, 10)), (1, 2, 0, (1, 1, 2)), (64, 39, 1, (1, 32, 1)),
+    (10, 39, 1, (1, 10, 3)), (64, 39, 2, (2, 32, 1))])
+def test_bag_layout_splits_a_bag_over_the_warp(d, k, shift, layout):
+    """Loads as wide as D and the table's alignment allow (`shift` floats
+    past a 16-byte boundary), lanes over a row, as many rows as fit."""
+    assert tbag.bag_layout(d, k, 4096 + 4 * shift) == layout
+
+
+def test_embedding_bag_ordered_folds_in_the_kernels_order():
+    """Four rows of D = 64 (2 row groups: rows 0, 2 and rows 1, 3) whose
+    float32 sum depends on the order: the model adds (r0 + r2) + (r1 + r3)."""
+    big, one = np.float32(2 ** 24), np.float32(1.0)
+    table = np.zeros((4, 64), np.float32)
+    table[:, 0] = [big, one, -big, one]
+    idx = np.array([[0, 1, 2, 3]], np.int32)
+    o = tbag.embedding_bag_ordered(_t(table), _t(idx), "sum")
+    assert tbag.bag_layout(64, 4, _t(table).data_ptr())[2] == 2
+    assert float(o[0, 0]) == 2.0           # a left fold gives ((2^24 + 1) - 2^24) + 1 = 1
+
+
+def test_embedding_bag_ordered_with_one_group_is_a_left_fold():
+    rng = np.random.default_rng(9)
+    table = _t(rng.standard_normal((30, 10)).astype(np.float32))
+    idx = _t(rng.integers(0, 30, size=(7, 39)).astype(np.int32))
+    want = torch.zeros(7, 10)
+    for k in range(39):
+        want = want + table[idx[:, k].long()]
+    assert torch.equal(tbag.embedding_bag_ordered(table, idx, "sum", groups=1), want)
+
+
+def test_embedding_bag_nan_propagates_in_every_mode():
+    table = np.random.default_rng(4).standard_normal((6, 10)).astype(np.float32)
+    table[2, 3] = np.nan
+    idx = np.array([[0, 2, 5], [1, 3, 4]], np.int32)
+    for mode in ("sum", "mean", "max"):
+        for fn in (tbag.embedding_bag_plain, tbag.embedding_bag_ordered):
+            out = fn(_t(table), _t(idx), mode).numpy()
+            assert np.isnan(out[0, 3]) and np.isnan(out).sum() == 1, (fn.__name__, mode)
