@@ -11,13 +11,18 @@ Phases (any failure exits non-zero; nothing is caught):
                  HGMMA (wgmma) and UTMALDG (TMA loads), the TF32 flash
                  library's TF32 tensor-core instructions (HMMA...TF32),
                  ell_combine's and ell_spmm's LDG.E.128 (16-byte loads);
-                 registers and spills of the TF32 flash kernel and ell_spmm
-                 (ptxas -v), the main path's instances by name;
+                 registers and spills of the TF32 flash kernel, ell_spmm
+                 and ell_combine_batched (ptxas -v), the main path's
+                 instances by name;
   3. kernels   — each CUDA kernel against its plain PyTorch version on the
                  card over shape sweeps: ell_combine bit-equal at W in
                  {1, 2, 3, 4, 5, 8, 12, 16, 32, 64, 128, 256}, both its
                  16-byte and scalar variants (views 4 bytes into their
-                 storage among them); its deletion overlay bit-equal to the
+                 storage among them); ell_combine_batched bit-equal to its
+                 plain version at W in {1, 2, 3, 4, 5, 8, 32, 256} and Q in
+                 {1, 3, 4, 8, 64, 65}, all 12 op pairs, sentinels anywhere
+                 in a row, vals views 4 bytes into their storage, and at
+                 Q = 1 to the 1-D kernel; its deletion overlay bit-equal to the
                  plain version and to the kernel on the neutralized copy;
                  frontier_pack bit-equal; segment_reduce bit-equal to
                  segment_reduce_ordered (its fold order) for sum, min and
@@ -86,7 +91,26 @@ Phases (any failure exits non-zero; nothing is caught):
                  TF32 products a product at 495 TFLOP/s, its CUDA-core
                  bound beside it, ell_spmm's bound beside the one without
                  padding weights and its rate of row requests;
-  7. report    — the `kernels` JSON line (all eight kernels, flash as two
+  7. baselines — the paper's baseline engines (Fig. 5, Fig. 12) on RMAT-22
+                 and grid2d(1024) against `engine.run`, each timed beside
+                 it: run_atomic bfs and sssp, run_batch_filter bfs and the
+                 ballot-only sssp bit-equal; run_atomic pagerank within rtol
+                 1e-5 for one iteration (its whole run's deviation logged);
+                 the online-only bfs overflows on RMAT-22 at frontier_cap 64
+                 and on the grid at 256, and at the grid's side (1024, edge
+                 cap 4096) runs to the end bit-equal to full bfs;
+  8. batched   — `serving.run_batch` at RMAT-22 with `default_config`:
+                 ell_combine_batched on each slice at Q = 8 and 64 beside
+                 its byte bound, plain version and torch.sparse.mm; then 64
+                 sources (vertex 0, 62 seeded draws of nonzero degree, one
+                 repeated): bfs, sssp and ppr at Q = 64 counted
+                 (ell_combine_batched, segment_reduce and frontier_pack
+                 launches against the steps taken), 8 lanes bit-equal to solo
+                 engine.run, bfs/sssp lanes equal to scipy, warm times and
+                 queries/s at Q = 1, 8, 64, pagerank at Q = 2, the masked
+                 pull of ppr (its drift logged) and ppr_delta (bit-equal),
+                 telemetry counters, peak device memory;
+  9. report    — the `kernels` JSON line (all nine kernels, flash as two
                  routes), the card line, then the last line
                  {"ok": true, "device": {...}}.
 
@@ -288,6 +312,47 @@ def sweep_ell(dev, rng, ell) -> float:
                     raise AssertionError(f"ell_combine {op}/{comb} R={r} W={w} n={n} "
                                          f"shift={shift} differs")
                 worst = max(worst, abs_err(a, b))
+    return worst
+
+
+def sweep_batched(dev, rng, ell) -> float:
+    """ell_combine_batched bit-equal to its plain version for every op pair,
+    at W in {1, 2, 3, 4, 5, 8, 32, 256} and Q in {1, 3, 4, 8, 64, 65}, with
+    sentinels anywhere in a row, on both variants (float4 columns where
+    Q % 4 == 0 and vals is aligned; scalar columns for other Q and for a vals
+    view 4 bytes into its storage); at Q = 1 also bit-equal to the 1-D
+    ell_combine kernel."""
+    worst = 0.0
+    for w in (1, 2, 3, 4, 5, 8, 32, 256):
+        r, n = 41, 500
+        nb = rng.integers(0, n, (r, w)).astype(np.int32)
+        nb[rng.random((r, w)) < 0.3] = n                      # sentinels anywhere
+        nbr = torch.from_numpy(nb).to(dev)
+        wgt = torch.from_numpy(rng.random((r, w)).astype(np.float32)).to(dev)
+        for q in (1, 3, 4, 8, 64, 65):
+            v = rng.standard_normal((n + 1) * q + 1) * 10 ** rng.uniform(-3, 3, (n + 1) * q + 1)
+            v = v.astype(np.float32)
+            v[rng.random(v.shape[0]) < 0.2] = ell.BIG
+            flat = torch.from_numpy(v).to(dev)
+            for shift in (0, 1):
+                vals = flat[shift:shift + (n + 1) * q].view(n + 1, q)
+                vec, lanes = ell.batched_layout(q, vals.data_ptr(), 0)
+                if vec != (q % 4 == 0 and shift == 0):
+                    raise AssertionError(f"ell_combine_batched Q={q} shift={shift}: vector {vec}")
+                for op in ell.COMPUTE_OPS:
+                    for comb in ell.COMBINE_OPS:
+                        a = ell.ell_combine_batched_cuda(nbr, wgt, vals, op, comb)
+                        b = ell.ell_combine_batched_plain(nbr, wgt, vals, op, comb)
+                        torch.cuda.synchronize()
+                        if not bit_equal(a, b):
+                            raise AssertionError(f"ell_combine_batched {op}/{comb} W={w} Q={q} "
+                                                 f"shift={shift} differs from its plain version")
+                        if q == 1 and not bit_equal(
+                                a[:, 0].contiguous(),
+                                ell.ell_combine_cuda(nbr, wgt, vals[:, 0].contiguous(), op, comb)):
+                            raise AssertionError(f"ell_combine_batched {op}/{comb} W={w} Q=1 "
+                                                 "differs from the 1-D kernel")
+                        worst = max(worst, abs_err(a, b))
     return worst
 
 
@@ -548,7 +613,9 @@ def sweep_flash(dev, rng, fa, ops, rounded: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def scipy_dist(g, unweighted: bool) -> np.ndarray:
+def scipy_dist(g, unweighted: bool, indices=0) -> np.ndarray:
+    """scipy's Dijkstra distances from `indices` (a vertex, or a list: one
+    row each)."""
     from scipy.sparse import csr_matrix
     from scipy.sparse.csgraph import dijkstra
 
@@ -556,7 +623,7 @@ def scipy_dist(g, unweighted: bool) -> np.ndarray:
     a = csr_matrix((g.out.weights.cpu().numpy().astype(np.float64),
                     g.out.col_idx.cpu().numpy(), g.out.row_ptr.cpu().numpy()),
                    shape=(n, n))
-    return dijkstra(a, directed=True, indices=0, unweighted=unweighted)
+    return dijkstra(a, directed=True, indices=indices, unweighted=unweighted)
 
 
 def check_dist(name: str, dist: torch.Tensor, ref: np.ndarray, big: float) -> None:
@@ -577,12 +644,18 @@ def same_run(name, ma, sa, mb, sb) -> None:
             raise AssertionError(f"{name}: stat {k!r} differs")
 
 
-def timed_run(engine, prog, g, pack, cfg):
+def timed(fn):
+    """(fn(), host seconds) with the card synchronised on both sides."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    m, st = engine.run(prog, g, pack, cfg)
+    out = fn()
     torch.cuda.synchronize()
-    return m, st, time.perf_counter() - t0
+    return out, time.perf_counter() - t0
+
+
+def timed_run(engine, prog, g, pack, cfg):
+    (m, st), t = timed(lambda: engine.run(prog, g, pack, cfg))
+    return m, st, t
 
 
 def profile_runs(engine, progs, g, pack, cfg, top: int = 8) -> None:
@@ -900,6 +973,320 @@ def slice_phase(dev, pack, ops, ell, bag, fa, L, report, err, rounded) -> dict:
     return mine
 
 
+# ---------------------------------------------------------------------------
+# phases 7 and 8: the baseline engines, the batched engine
+# ---------------------------------------------------------------------------
+
+
+def baselines_phase(A, E, Bl, label: str, g, pack, online_caps, hold_pagerank: bool) -> None:
+    """Phase 7 on one graph: each baseline engine (paper Fig. 5, Fig. 12)
+    against `engine.run` with the kernel pull, timed beside it. run_atomic
+    bfs/sssp, run_batch_filter bfs and the ballot-only ablation of sssp are
+    bit-equal; run_atomic pagerank's first iteration against float64 (see
+    below); its whole run within rtol 1e-5 of engine.run where
+    `hold_pagerank` (a graph on which pagerank's frontier holds every
+    vertex for its whole run, so that the atomic pushes gather what the
+    pull gathers), else its deviation logged: its pushes skip senders that
+    left the frontier. `online_caps` is a list of (frontier_cap, edge_cap,
+    must overflow) for the online-only ablation of bfs; a run that must not
+    overflow equals full bfs."""
+    n, m = g.n_nodes, g.n_edges
+    cfg = E.EngineConfig(frontier_cap=n, edge_cap=m, max_iters=16384)
+    tag = f"[7 baselines] {label}"
+    solo = {}
+    for name, prog in (("bfs", A.bfs(0)), ("sssp", A.sssp(0)), ("pagerank", A.pagerank()),
+                       ("pagerank_1", A.pagerank(max_iters=1))):
+        (mm, ss), t = timed(lambda: E.run(prog, g, pack, cfg))
+        solo[name] = (mm, t, int(ss["iterations"]))
+        log(f"{tag} engine.run {name}: {t:.3f} s, {solo[name][2]} iterations")
+
+    def held(what, name, field, mb, t, iters):
+        if not bit_equal(mb[field], solo[name][0][field]):
+            raise AssertionError(f"{label} {what} {name} differs from engine.run")
+        log(f"{tag} {what} {name}: {t:.3f} s ({t / solo[name][1]:.2f}x engine.run), "
+            f"{iters} iterations; bit-equal to engine.run")
+
+    for name in ("bfs", "sssp"):
+        (mb, sb), t = timed(lambda: Bl.run_atomic(A.ALL[name](0), g, cfg))
+        held("run_atomic", name, "dist", mb, t, int(sb["iterations"]))
+    # pagerank: one iteration (every vertex pushes, as the pull gathers)
+    # against the same iteration in float64 on the same float32 inputs: the
+    # engine's fixed-order trees within rtol 1e-5 of it; the atomic adds, in
+    # whatever order the card takes them, within the a-priori bound of a
+    # float32 sum of k positive terms in any order plus the three roundings
+    # of the update, gamma_(k+3) = (k+3)u / (1 - (k+3)u) relative, k the
+    # in-degree (rtol 1e-5 is not a bound on a hub's 10^5 atomic adds)
+    p1 = A.pagerank(max_iters=1)
+    (mb, sb), t = timed(lambda: Bl.run_atomic(p1, g, cfg))
+    contrib = E.init_state(p1, g, cfg).m["contrib"].double()
+    seg = torch.zeros(n, dtype=torch.float64, device=contrib.device)
+    seg.index_add_(0, g.inc.src_idx.long(), contrib[g.inc.col_idx.long()])
+    exact = (1.0 - 0.85) / n + 0.85 * seg
+    eng = solo["pagerank_1"][0]["rank"][:-1].double()
+    torch.testing.assert_close(eng, exact, rtol=1e-5, atol=0.0)
+    k = g.inc.degrees().double() + 3
+    gamma = k * 2.0 ** -24 / (1 - k * 2.0 ** -24)
+    err = (mb["rank"][:-1].double() - exact).abs()
+    ratio = float((err / (gamma * exact)).max())
+    if not ratio <= 1.0:
+        raise AssertionError(f"{label} run_atomic pagerank: off the float64 iteration by "
+                             f"{ratio:.3g} of the any-order summation bound")
+    log(f"{tag} run_atomic pagerank, one iteration: {t:.3f} s; largest relative deviation "
+        f"from float64 {rel_max(mb['rank'][:-1], exact):.3g} (atomic adds; at most "
+        f"{ratio:.3g} of the any-order bound), engine.run's {rel_max(eng, exact):.3g} (limit "
+        f"1e-5), between the two {rel_max(mb['rank'][:-1], eng):.3g}")
+    (mb, sb), t = timed(lambda: Bl.run_atomic(A.pagerank(), g, cfg))
+    ref = solo["pagerank"][0]["rank"]
+    if hold_pagerank:
+        torch.testing.assert_close(mb["rank"], ref, rtol=1e-5, atol=0.0)
+    log(f"{tag} run_atomic pagerank, whole run: {t:.3f} s ({t / solo['pagerank'][1]:.2f}x "
+        f"engine.run), {int(sb['iterations'])} iterations against {solo['pagerank'][2]}, "
+        f"largest relative deviation from engine.run {rel_max(mb['rank'][:-1], ref[:-1].double()):.3g}"
+        + (" (limit 1e-5)" if hold_pagerank else " (not held: its pushes skip senders that "
+                                                  "left the frontier)"))
+    (mb, sb), t = timed(lambda: Bl.run_batch_filter(A.bfs(0), g, cfg))
+    held("run_batch_filter", "bfs", "dist", mb, t, int(sb["iterations"]))
+    (mb, sb), t = timed(lambda: Bl.run_filter_ablation(A.sssp(0), g, pack, cfg, "ballot"))
+    held("ballot-only", "sssp", "dist", mb, t, int(sb["iterations"]))
+    for fcap, ecap, must in online_caps:
+        small = E.EngineConfig(frontier_cap=fcap, edge_cap=ecap, max_iters=16384)
+        (mb, sb), t = timed(lambda: Bl.run_filter_ablation(A.bfs(0), g, pack, small, "online"))
+        failed = bool(sb["failed_overflow"])
+        if failed != must:
+            raise AssertionError(f"{label} online-only bfs frontier_cap={fcap} edge_cap={ecap}: "
+                                 f"failed_overflow {failed}, expected {must}")
+        if not failed and not bit_equal(mb["dist"], solo["bfs"][0]["dist"]):
+            raise AssertionError(f"{label} online-only bfs differs from full bfs")
+        log(f"{tag} online-only bfs frontier_cap={fcap} edge_cap={ecap}: {t:.3f} s, "
+            f"{int(sb['iterations'])} iterations, "
+            + ("overflowed, as it must" if failed else "no overflow; bit-equal to full bfs"))
+
+
+def time_batched_kernel(dev, ell, pack, report, err) -> None:
+    """ell_combine_batched on each RMAT-22 slice at Q = 8 and 64: bit-equal
+    to its plain version (copy/sum and add_w/min), timed beside its bound
+    by bytes (every id, the real slots' weights, vals and the output once;
+    and with one Q-vector a real slot, the gathers' traffic without reuse),
+    the plain version and torch.sparse.mm of the slice's
+    (R, n + 1) 0/1 matrix by vals (the single library call for copy/sum).
+    Fills report["ell_combine_batched"] (Q = 64 at the top, Q = 8 under
+    `q8`). These launches are not counted."""
+    n, slices = pack.n_nodes, pack.slices
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(17)
+    csrs, reals = [], []
+    for s in slices:
+        live = s.nbr != n
+        crow = torch.zeros(s.rows + 1, dtype=torch.int32, device=dev)
+        crow[1:] = live.sum(dim=1).cumsum(0)
+        col = s.nbr[live]
+        csrs.append(torch.sparse_csr_tensor(crow, col, torch.ones_like(col, dtype=torch.float32),
+                                            size=(s.rows, n + 1)))
+        reals.append(int(live.sum()))
+    per_q, worst = {}, err["ell_combine_batched"]
+    for q in (8, 64):
+        vals = torch.rand(n + 1, q, device=dev, generator=gen) * 64
+        rows = []
+        for s, c, rl in zip(slices, csrs, reals):
+            for op, comb in (("copy", "sum"), ("add_w", "min")):
+                a = ell.ell_combine_batched_cuda(s.nbr, s.wgt, vals, op, comb)
+                b = ell.ell_combine_batched_plain(s.nbr, s.wgt, vals, op, comb)
+                if not bit_equal(a, b):
+                    raise AssertionError(f"ell_combine_batched {op}/{comb} Q={q} differs on the "
+                                         f"{tuple(s.nbr.shape)} slice")
+                worst = max(worst, abs_err(a, b))
+            lib_diff = abs_err(ell.ell_combine_batched_cuda(s.nbr, s.wgt, vals, "copy", "sum"),
+                               torch.sparse.mm(c, vals))
+            # each input read once (every id, the real slots' weights, vals),
+            # the output written once; beside it the gathers' bound, one
+            # Q-vector a real slot
+            bnd = bound_ms(s.nbr.numel() * 4 + rl * 4 + (n + 1) * q * 4 + s.rows * q * 4, rl * q)
+            gather = bound_ms(s.nbr.numel() * 4 + rl * 4 + rl * q * 4 + s.rows * q * 4, rl * q)
+            row = dict(
+                shape=[s.rows, s.width], real_slots=rl,
+                ms=cuda_ms(lambda s=s: ell.ell_combine_batched_cuda(s.nbr, s.wgt, vals, "copy",
+                                                                    "sum"), 10),
+                min_ms=cuda_ms(lambda s=s: ell.ell_combine_batched_cuda(s.nbr, s.wgt, vals,
+                                                                        "add_w", "min"), 10),
+                plain_ms=cuda_ms(lambda s=s: ell.ell_combine_batched_plain(s.nbr, s.wgt, vals,
+                                                                           "copy", "sum"), 1, 0),
+                library_ms=cuda_ms(lambda c=c: torch.sparse.mm(c, vals), 5),
+                bound_ms=bnd[0], bound_by=bnd[1], bound_gather_ms=gather[0],
+                library_max_abs_diff=lib_diff)
+            rows.append(row)
+            log(f"[8 batched] ell_combine_batched Q={q} slice {tuple(s.nbr.shape)}, {rl} real "
+                f"slots: copy/sum {row['ms']:.4f} ms, add_w/min {row['min_ms']:.4f} ms (bound "
+                f"{row['bound_ms']:.4f} by {row['bound_by']}, {row['bound_gather_ms']:.4f} with "
+                f"a Q-vector a real slot); plain {row['plain_ms']:.4f}; "
+                f"torch.sparse.mm {row['library_ms']:.4f} (max |kernel - sparse.mm| "
+                f"{lib_diff:.3g}); bit-equal to plain for copy/sum and add_w/min")
+        tot = {k: sum(r[k] for r in rows) for k in ("ms", "min_ms", "plain_ms", "library_ms",
+                                                     "bound_ms", "bound_gather_ms")}
+        per_q[q] = dict(tot, slices=rows)
+        log(f"[8 batched] ell_combine_batched Q={q}, 4 slices: copy/sum {tot['ms']:.4f} ms, "
+            f"add_w/min {tot['min_ms']:.4f}, bound {tot['bound_ms']:.4f} (with a Q-vector a "
+            f"real slot {tot['bound_gather_ms']:.4f}), plain "
+            f"{tot['plain_ms']:.4f}, torch.sparse.mm {tot['library_ms']:.4f}")
+        del vals
+    top = per_q[64]
+    report["ell_combine_batched"] = dict(
+        replaces="src/repro/serving/batch_engine.py:222 (XLA, no Pallas kernel)",
+        shape=f"{len(slices)} RMAT ELL slices, {sum(reals)} real slots, Q=64, copy/sum "
+              f"(Q=8 under q8)",
+        max_abs_err=worst, ms=top["ms"], min_ms=top["min_ms"], plain_ms=top["plain_ms"],
+        bound_ms=top["bound_ms"], bound_by="bytes", bound_gather_ms=top["bound_gather_ms"],
+        library_ms=top["library_ms"],
+        slices=top["slices"], q8=per_q[8])
+
+
+def batched_phase(dev, A, E, S, BE, obs, ops, ell, g, pack, report) -> int:
+    """Phase 8: the batched engine at RMAT-22 with `default_config`, through
+    `serving.run_batch`. 64 sources: vertex 0, 62 distinct vertices of
+    nonzero degree drawn with numpy seed 17, and the 7th again (lanes 6 and
+    63). Counted run: bfs, sssp and ppr at Q = 64 (ell_combine_batched,
+    segment_reduce and frontier_pack launches against the steps taken);
+    lanes 0-6 and 63 bit-equal to solo engine.run, the duplicate pair
+    equal, lanes 0 and 1 of bfs/sssp equal to scipy; warm times and
+    queries/s at Q = 1, 8, 64; pagerank at Q = 2 bit-equal to solo; ppr with
+    the masked pull (frac 0.65) beside the dense pull (its frozen sub-tol
+    drift logged), ppr_delta's masked pull bit-equal to its dense pull at a
+    push budget of n / 16 (so that it pulls), each with the sparse branch
+    taken at least once; telemetry counters; the peak
+    of device memory. Returns the counted ell_combine_batched launches."""
+    n, m = g.n_nodes, g.n_edges
+    deg = g.out.degrees().cpu().numpy()
+    if deg[0] <= 0:
+        raise AssertionError("vertex 0 has no edge")
+    rng = np.random.default_rng(17)
+    draw = rng.choice(np.flatnonzero(deg[1:] > 0) + 1, 62, replace=False)
+    sources = [0] + [int(x) for x in draw] + [int(draw[5])]
+    cfg = S.default_config(g)
+    progs = {"bfs": ("dist", A.bfs), "sssp": ("dist", A.sssp), "ppr": ("rank", A.ppr)}
+    log(f"[8 batched] {len(sources)} sources, lanes 6 and 63 both vertex {sources[6]}; "
+        f"default_config: frontier_cap={cfg.frontier_cap} edge_cap={cfg.edge_cap}")
+    torch.cuda.empty_cache()
+
+    # -- the counted run ------------------------------------------------------
+    torch.cuda.reset_peak_memory_stats()
+    reads0 = dict(BE.HOST_READS)
+    ops.reset_launches()
+    runs = {}
+    for name, (field, make) in progs.items():
+        (mm, ss), t = timed(lambda: S.run_batch(make(0), g, pack, cfg, sources))
+        runs[name] = (mm, ss, t)
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    reads = {k: BE.HOST_READS[k] - reads0[k] for k in reads0}
+    pushes = pulls = 0
+    for name, (mm, ss, t) in runs.items():
+        last = int(torch.argmax(ss["per_query_iters"]))     # lives through every step
+        pushes += int(ss["push_iters"][last])
+        pulls += int(ss["pull_iters"][last])
+        log(f"[8 batched] {name} Q=64 (counted run, cold): {t:.3f} s, steps "
+            f"{int(ss['iterations'])} (push {int(ss['push_iters'][last])}, pull "
+            f"{int(ss['pull_iters'][last])}), per-query iterations "
+            f"{int(ss['per_query_iters'].min())}-{int(ss['per_query_iters'].max())}, "
+            f"switches {int(ss['switches'].max())}")
+    k = len(pack.slices)
+    want = {"ell_combine_batched": k * pulls, "frontier_pack": pushes,
+            "segment_reduce": pushes + k * pulls}
+    mine = {key: counts[key] for key in want}
+    log(f"[8 batched] launches on the batched path: {counts}; host reads {reads}; peak device "
+        f"memory {peak / 2**30:.2f} GiB (graph and ELL slices included)")
+    if mine != want:
+        raise AssertionError(f"batched launches {mine}, expected {want} from {pushes} pushes "
+                             f"and {pulls} pulls")
+
+    # -- lanes against solo engine.run and scipy ------------------------------
+    lanes = [0, 1, 2, 3, 4, 5, 6, 63]
+    t0 = time.perf_counter()
+    for name, (field, make) in progs.items():
+        mm = runs[name][0]
+        if not all(bit_equal(mm[f][:, 6], mm[f][:, 63]) for f in mm):
+            raise AssertionError(f"batched {name}: the duplicate lanes 6 and 63 differ")
+        for lane in lanes:
+            solo, _ = E.run(make(sources[lane]), g, pack, cfg)
+            for f in mm:
+                if not bit_equal(mm[f][:, lane].contiguous(), solo[f]):
+                    raise AssertionError(f"batched {name} lane {lane} field {f!r} differs "
+                                         "from solo engine.run")
+    log(f"[8 batched] bfs, sssp, ppr at Q=64: lanes {lanes} bit-equal to solo engine.run in "
+        f"every field, lanes 6 and 63 equal ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    for name in ("bfs", "sssp"):
+        ref = scipy_dist(g, name == "bfs", [sources[0], sources[1]])
+        for i in range(2):
+            check_dist(f"batched {name} lane {i}", runs[name][0]["dist"][:, i], ref[i], ell.BIG)
+    log(f"[8 batched] bfs and sssp lanes 0 and 1 equal scipy's distances "
+        f"({time.perf_counter() - t0:.1f} s)")
+    del runs
+
+    # -- warm times and queries/s ---------------------------------------------
+    for name, (field, make) in progs.items():
+        for q in (1, 8, 64):
+            src = sources[:q]
+            timed(lambda: S.run_batch(make(0), g, pack, cfg, src))          # warm-up
+            (mm, ss), t = timed(lambda: S.run_batch(make(0), g, pack, cfg, src))
+            log(f"[8 batched] {name} Q={q}: {t:.3f} s warm, {q / t:.1f} queries/s, steps "
+                f"{int(ss['iterations'])}")
+    mm, _ = S.run_batch(A.pagerank(), g, pack, cfg, [0, 9])
+    solo, _ = E.run(A.pagerank(), g, pack, cfg)
+    for lane in range(2):
+        if not all(bit_equal(mm[f][:, lane].contiguous(), solo[f]) for f in mm):
+            raise AssertionError(f"batched pagerank lane {lane} differs from solo")
+    log("[8 batched] pagerank (source-free) at Q=2: both lanes bit-equal to solo engine.run")
+
+    # -- masked pull, telemetry ----------------------------------------------
+    # ppr pulls every step; ppr_delta's residual frontier stays under
+    # default_config's push budget (2n edges) at this size, so its run takes
+    # a budget of n / 16 edges, where the heavy steps pull
+    fetches0 = obs.TRANSFER_COUNT
+    for name, field, dense in (("ppr", "rank", cfg),
+                               ("ppr_delta", "rank", dataclasses.replace(cfg, edge_cap=n // 16))):
+        make = getattr(A, name)
+        masked = dataclasses.replace(dense, masked_pull=True)
+        (md, sd), td = timed(lambda: S.run_batch(make(0), g, pack, dense, sources))
+        torch.cuda.reset_peak_memory_stats()
+        r0 = BE.HOST_READS["masked"]
+        (mk, sk), tk = timed(lambda: S.run_batch(make(0), g, pack, masked, sources,
+                                                 telemetry=True))
+        mpeak = torch.cuda.max_memory_allocated()
+        pulls = BE.HOST_READS["masked"] - r0
+        tele = obs.tele_dict(obs.device_fetch(sk["tele"]))
+        sparse = len(pack.slices) * pulls - tele["masked_dense_fallbacks"]
+        if not sparse > 0:
+            raise AssertionError(f"{name}: no slice took the masked pull's sparse branch "
+                                 f"({pulls} pulls)")
+        if name == "ppr_delta":
+            same = all(bit_equal(md[f], mk[f]) for f in md)
+            if not (same and torch.equal(sd["mode_trace"], sk["mode_trace"])):
+                raise AssertionError("ppr_delta: the masked pull differs from the dense pull")
+            what = "bit-equal to the dense pull"
+        else:
+            # a tol-thresholded program: a row is recomputed only where a
+            # sender moved by more than tol, so sub-tol drift stays frozen in
+            # the cache (the reference's semantics; its CPU tests hold the
+            # port's masked ppr to the reference's own); logged, not held
+            if not bool(torch.isfinite(mk[field]).all()):
+                raise AssertionError("ppr: the masked pull gave non-finite ranks")
+            diff = (md[field] - mk[field]).abs()
+            l1 = float(diff.sum() / md[field].abs().sum())
+            what = (f"off the dense pull by at most {float(diff.max()):.3g}, {l1:.3g} in "
+                    "relative L1 norm (not held)")
+        log(f"[8 batched] {name} Q=64 masked pull (edge_cap {dense.edge_cap}): {tk:.3f} s "
+            f"against dense {td:.3f} s, {what}; steps {int(sk['iterations'])} (dense "
+            f"{int(sd['iterations'])}); {pulls} pulls, one host read each, {sparse} slice "
+            f"pulls on the sparse branch; peak {mpeak / 2**30:.2f} GiB; telemetry {tele}")
+    mm, ss = S.run_batch(A.bfs(0), g, pack, cfg, sources, telemetry=True)
+    tele = obs.tele_dict(obs.device_fetch(ss["tele"]))
+    plane = obs.shard_plane(obs.device_fetch(ss["tele"]))
+    if int(plane[0]) != tele["push_edges_scanned"] + tele["pull_edges_scanned"]:
+        raise AssertionError(f"bfs telemetry: shard plane {plane} off the counters {tele}")
+    log(f"[8 batched] bfs Q=64 telemetry {tele}, shard plane {plane.tolist()}; "
+        f"{obs.TRANSFER_COUNT - fetches0} device_fetch transfers in these runs")
+    return counts["ell_combine_batched"]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=22, help="RMAT scale of the main path")
@@ -924,7 +1311,11 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import frontier_pack as fp
     from repro_torch.kernels import segment_reduce as sr
+    from repro_torch import obs
+    from repro_torch import serving as S
+    from repro_torch.core import baselines as Bl
     from repro_torch.nn import layers as L
+    from repro_torch.serving import batch_engine as BE
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -976,9 +1367,13 @@ def main() -> int:
     # registers and spills of every instance; the main path's by name:
     # flash_kernel<float, DP = 128, causal, cp.async>; spmm_kernel<float, V, L, C>
     # at D = 64 (V = 4, L = 16, C = 1) and D = 70 (V = 2, L = 16, C = 3)
+    # ell_batched<C, K, V, LOGCH> at Q = 64 (V = 4), p >= 8 (LOGCH = 3): copy/sum
+    # (ppr) and hop/min (bfs)
     for source, main in ((_build.KERNELS[fa.TF32], "flash_kernelIfLi128ELb1ELb1E"),
                          ("ell_spmm", "spmm_kernelIfLi4ELi16ELi1E"),
-                         ("ell_spmm", "spmm_kernelIfLi2ELi16ELi3E")):
+                         ("ell_spmm", "spmm_kernelIfLi2ELi16ELi3E"),
+                         ("ell_combine_batched", "ell_batchedILi2ELi2ELi4ELi3E"),
+                         ("ell_combine_batched", "ell_batchedILi0ELi0ELi4ELi3E")):
         per = ptxas_instances(_build.ptxas_report(source))
         regs = sorted({x[2] for x in per})
         spill = sum(x[1] for x in per)
@@ -989,6 +1384,7 @@ def main() -> int:
     rng = np.random.default_rng(0)
     rounded = {}
     err = {"ell_combine": sweep_ell(dev, rng, ell),
+           "ell_combine_batched": sweep_batched(dev, rng, ell),
            "ell_combine_overlay": sweep_overlay(dev, rng, ell),
            "frontier_pack": sweep_pack(dev, rng, fp),
            "segment_reduce": sweep_segment(dev, rng, sr),
@@ -1156,7 +1552,6 @@ def main() -> int:
     del results
     if args.profile:
         profile_runs(E, progs, g, pack, cfg_k)
-    del g                       # phase 6 runs on the ELL slices
     torch.cuda.empty_cache()
 
     # -- phase 5: high diameter ------------------------------------------------
@@ -1185,10 +1580,31 @@ def main() -> int:
 
     # -- phase 6: the second slice at full width ----------------------------
     launches.update(slice_phase(dev, pack, ops, ell, bag, fa, L, report, err, rounded))
-    del pack
     torch.cuda.empty_cache()
 
-    # -- phase 7: report -------------------------------------------------------
+    # -- phase 7: the paper's baseline engines ---------------------------------
+    t0 = time.perf_counter()
+    baselines_phase(A, E, Bl, f"RMAT-{args.scale}", g, pack, [(64, m, True)], False)
+    side = args.grid
+    # the online filter alone on the grid: a bfs front from a corner holds up
+    # to `side` vertices, so a cap of 256 overflows at depth 256 and `side`
+    # (with 4 edges a vertex) carries the whole run
+    baselines_phase(A, E, Bl, f"grid2d({side})", g2, pack2,
+                    [(256, 2048, side > 256), (side, 4 * side, False)], True)
+    log(f"[7 baselines] phase {time.perf_counter() - t0:.1f} s")
+    del g2, pack2
+    torch.cuda.empty_cache()
+
+    # -- phase 8: the batched engine at RMAT-22 -------------------------------
+    t0 = time.perf_counter()
+    time_batched_kernel(dev, ell, pack, report, err)
+    launches["ell_combine_batched"] = batched_phase(dev, A, E, S, BE, obs, ops, ell, g, pack,
+                                                    report)
+    log(f"[8 batched] phase {time.perf_counter() - t0:.1f} s")
+    del g, pack
+    torch.cuda.empty_cache()
+
+    # -- phase 9: report -------------------------------------------------------
     kernels = []
     for name in _build.KERNELS:
         if launches[name] <= 0:
@@ -1196,7 +1612,7 @@ def main() -> int:
         kernels.append(dict(name=name, route="cuda",
                             source=f"src/repro_torch/csrc/{_build.KERNELS[name]}.cu",
                             launches=launches[name], passed=True, **report[name]))
-    log(f"[7 report] total {time.perf_counter() - t_start:.1f} s")
+    log(f"[9 report] total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card_line())
     log(json.dumps({"ok": True, "device": {

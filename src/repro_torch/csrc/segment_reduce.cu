@@ -45,13 +45,17 @@
 //          writes that end into the segment's own output slot, which the
 //          block tier overwrites with the result.
 //      D > 1 (seg_tiles_cols, chunks of one sub-tile): lanes run over
-//      columns (a warp reads whole rows, coalesced) and every segment up to
-//      LONG_SEG rows is a left fold over its rows, one warp a segment.
-//   3. seg_block, one 256-thread block per listed segment: D = 1, thread t
-//      folds rows t + 256k in order, then a shuffle tree in each warp and a
-//      halving tree over the 8 warp results; D > 1, warp w folds rows
-//      w + 8k in order (lanes over columns), then a halving tree over the 8
-//      warps.
+//      columns (a warp reads whole rows, coalesced), one warp a segment,
+//      and each column is folded in the D = 1 order of the segment's tier,
+//      so that column q of a (E, D) call is bit-equal to the (E,) call on
+//      column q (the batched engine's lanes against the solo engine): a
+//      left fold up to THREAD_SEG rows; up to LONG_SEG rows 32 partials a
+//      lane, partial l folding rows l, l + 32, ..., then their halving tree.
+//   3. seg_block, one 256-thread block per listed segment: thread t folds
+//      rows t + 256k in order, then a shuffle tree in each warp and a
+//      halving tree over the 8 warp results; D > 1 the same per column,
+//      warp w's lanes over columns each holding the partials of threads
+//      32w .. 32w + 31.
 // Empty segments keep the fill of pass 1: no warp is started for them, and
 // no scratch of E entries is written (the long list holds at most
 // E / 2049 + 1 row numbers).
@@ -308,8 +312,11 @@ seg_tiles(const float* __restrict__ vals, const int* __restrict__ ids,
   }
 }
 
-// D > 1: one sub-tile of 32 rows a warp; each segment up to LONG_SEG rows
-// is a left fold over its rows, lanes over columns.
+// D > 1: one sub-tile of 32 rows a warp; lanes over columns, and each
+// column of a segment folded in the order of the D = 1 tiers: up to
+// THREAD_SEG rows a left fold over its rows; up to LONG_SEG rows 32
+// partials a lane (partial l folds rows l, l + 32, ... of its column, as
+// lane l of the D = 1 warp tier does), then the same halving tree over them.
 template <int K>
 __global__ void __launch_bounds__(THREADS)
 seg_tiles_cols(const float* __restrict__ vals, const int* __restrict__ ids,
@@ -333,10 +340,29 @@ seg_tiles_cols(const float* __restrict__ vals, const int* __restrict__ ids,
       const int st = a + hl;
       const int en = __shfl_sync(FULL, end[0], hl);
       const long long s = __shfl_sync(FULL, idv[0], hl);
-      for (int c = lane; c < D; c += 32) {
-        float acc = ident<K>();
-        for (int r = st; r < en; ++r) acc = pair<K>(acc, vals[(long long)r * D + c]);
-        out[s * D + c] = acc;
+      if (en - st <= THREAD_SEG) {
+        for (int c = lane; c < D; c += 32) {
+          float acc = ident<K>();
+          for (int r = st; r < en; ++r) acc = pair<K>(acc, vals[(long long)r * D + c]);
+          out[s * D + c] = acc;
+        }
+        continue;
+      }
+      for (int c0 = 0; c0 < D; c0 += 32) {
+        const int c = c0 + lane;
+        float p[32];
+#pragma unroll
+        for (int l = 0; l < 32; ++l) p[l] = ident<K>();
+        if (c < D)
+          for (int r0 = st; r0 < en; r0 += 32)
+#pragma unroll
+            for (int l = 0; l < 32; ++l)
+              if (r0 + l < en) p[l] = pair<K>(p[l], vals[(long long)(r0 + l) * D + c]);
+#pragma unroll
+        for (int h = 16; h >= 1; h >>= 1)
+#pragma unroll
+          for (int l = 0; l < h; ++l) p[l] = pair<K>(p[l], p[l + h]);
+        if (c < D) out[s * D + c] = p[0];
       }
     }
   }
@@ -380,23 +406,34 @@ seg_block(const float* __restrict__ vals, const int* __restrict__ ids, int D,
       }
       __syncthreads();
     } else {
+      // per column the D = 1 order: thread t = 32 w + l of the block folds
+      // rows t, t + 256, ... (warp w's partial l), then warp w's halving
+      // tree over its 32, then one over the 8 warps
       for (int c0 = 0; c0 < D; c0 += 32) {
         const int c = c0 + lane;
-        float acc = ident<K>();
+        float p[32];
+#pragma unroll
+        for (int l = 0; l < 32; ++l) p[l] = ident<K>();
         if (c < D)
-          for (int r = start + warp; r < end; r += WARPS)
-            acc = pair<K>(acc, vals[(long long)r * D + c]);
-        part[warp][lane] = acc;
+          for (int r0 = start + 32 * warp; r0 < end; r0 += THREADS)
+#pragma unroll
+            for (int l = 0; l < 32; ++l)
+              if (r0 + l < end) p[l] = pair<K>(p[l], vals[(long long)(r0 + l) * D + c]);
+#pragma unroll
+        for (int h = 16; h >= 1; h >>= 1)
+#pragma unroll
+          for (int l = 0; l < h; ++l) p[l] = pair<K>(p[l], p[l + h]);
+        part[warp][lane] = p[0];
         __syncthreads();
         if (warp == 0 && c < D) {
-          float p[WARPS];
+          float q[WARPS];
 #pragma unroll
-          for (int k = 0; k < WARPS; ++k) p[k] = part[k][lane];
+          for (int k = 0; k < WARPS; ++k) q[k] = part[k][lane];
 #pragma unroll
           for (int h = WARPS / 2; h >= 1; h >>= 1)
 #pragma unroll
-            for (int k = 0; k < h; ++k) p[k] = pair<K>(p[k], p[k + h]);
-          out[s * D + c] = p[0];
+            for (int k = 0; k < h; ++k) q[k] = pair<K>(q[k], q[k + h]);
+          out[s * D + c] = q[0];
         }
         __syncthreads();
       }

@@ -7,6 +7,8 @@ tests to run both packages on one graph, one packing and one initial state.
     g = graph_from_numpy(csr_arrays(jax_graph.out), csr_arrays(jax_graph.inc),
                          device="cuda")
     p = attn_params_from_numpy({k: np.asarray(v[0]) for k, v in layers.items()})
+    st = batch_state_from_numpy({"m": {k: np.asarray(v) for k, v in ref.m.items()},
+                                 "it": np.asarray(ref.it), ...}, device="cuda")
 """
 
 from __future__ import annotations
@@ -83,3 +85,22 @@ def attn_params_from_numpy(layer: Mapping, device="cuda") -> dict:
     """One layer's attention weights (`wq`, `wk`, `wv`, `wo`, `attn_norm`,
     numpy, dtypes kept) as the dict `nn.layers.gqa_attention` takes."""
     return {k: tensor_from_numpy(layer[k], device) for k in ATTN_FIELDS}
+
+
+def batch_state_from_numpy(arrays: Mapping, device="cuda"):
+    """A `serving.batch_engine.BatchState` from a mapping of its field names
+    to numpy arrays (`m` a dict of them, `pseg` a tuple; dtypes kept, `None`
+    planes kept as `None`): a reference state carried into the port, e.g.
+    to resume `run_state` from it."""
+    from repro_torch.serving.batch_engine import BatchState
+
+    kw = {}
+    for k in BatchState._fields:
+        v = arrays.get(k)
+        if k == "m":
+            kw[k] = meta_from_numpy(v, device)
+        elif k == "pseg":
+            kw[k] = tuple(tensor_from_numpy(a, device) for a in (v or ()))
+        else:
+            kw[k] = None if v is None else tensor_from_numpy(v, device)
+    return BatchState(**kw)

@@ -26,10 +26,11 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 #: <checkout>/build/kernels (the checkout root holds src/repro_torch/)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 #: each kernel and the source that holds it (the deletion overlay is a
-#: template flag of `ell_combine.cu`, counted apart; flash attention has two
-#: routes: wgmma for bfloat16, mma.sync in TF32 (3xTF32 for float32) for the
-#: rest)
+#: template flag of `ell_combine.cu`, counted apart; the batched engine's
+#: Q-wide pull has a source of its own; flash attention has two routes:
+#: wgmma for bfloat16, mma.sync in TF32 (3xTF32 for float32) for the rest)
 KERNELS = {"ell_combine": "ell_combine", "ell_combine_overlay": "ell_combine",
+           "ell_combine_batched": "ell_combine_batched",
            "frontier_pack": "frontier_pack", "segment_reduce": "segment_reduce",
            "ell_spmm": "ell_spmm", "embedding_bag": "embedding_bag",
            "flash_attention": "flash_attention_wgmma",

@@ -24,6 +24,13 @@ four the catalog uses (`COMPUTE_OPS`); an `ACCProgram` declares its op in
 `halving_tree`, in the kernel and in the plain version alike, so the two are
 bit-equal for sums as well as for min and max.
 
+`ell_combine_batched` is the batched engine's dense pull, where the
+reference builds an (R, W, Q) gather in XLA: for vertex-major vals
+(n+1, Q) each column gets `ell_combine`'s halving tree over W, bit-equal to
+the 1-D kernel at Q = 1. Its kernel is `csrc/ell_combine_batched.cu`
+(lanes over Q, float4 columns where `batched_layout` allows); its plain
+version works in row chunks.
+
 `ell_spmm`'s kernel is `csrc/ell_spmm.cu`: one warp a row walks the live
 slots only, with f32 accumulation in a fixed order, output in F's dtype
 (float32 or bfloat16); `spmm_layout` picks its loads (16-byte ids and
@@ -289,4 +296,75 @@ def ell_spmm_cuda(nbr: torch.Tensor, wgt: torch.Tensor, feats: torch.Tensor
                  SPMM_DTYPES[feats.dtype], int(vec_ids), fvec, _build.stream_of(dev))
     _build.check(err, "ell_spmm")
     _build.LAUNCHES["ell_spmm"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Q-wide ELL combine: out[r, q] = TREE_j Compute(vals[nbr[r, j], q], wgt[r, j])
+# ---------------------------------------------------------------------------
+
+
+def ell_combine_batched_plain(nbr: torch.Tensor, wgt: torch.Tensor, vals: torch.Tensor,
+                              compute: str, combine: str) -> torch.Tensor:
+    """Plain PyTorch version of the batched engine's dense pull over one
+    slice, for vertex-major vals (n+1, Q): gather, Compute, identity on
+    sentinel slots, halving-tree reduce over W; in row chunks of at most
+    2^24 gathered elements, so (rows, W, Q) stays small at full size."""
+    n = vals.shape[0] - 1
+    r, w = nbr.shape
+    q = vals.shape[1]
+    out = torch.empty((r, q), dtype=vals.dtype, device=vals.device)
+    step = max(1, _PLAIN_CHUNK // max(w * q, 1))
+    ident = _IDENT[combine]
+    for lo in range(0, r, step):
+        nb = nbr[lo:lo + step]
+        v = vals[torch.clamp(nb, max=n).long()]                   # (c, W, Q)
+        upd = compute_op(compute, v, wgt[lo:lo + step, :, None])
+        upd = torch.where((nb == n)[..., None], ident, upd)
+        out[lo:lo + step] = halving_tree(upd, 1, combine)
+    return out
+
+
+def batched_layout(q: int, vals_ptr: int, out_ptr: int) -> tuple[bool, int]:
+    """(vector, lanes) of `ell_combine_batched`'s kernel for Q columns: four
+    columns a lane in 16-byte loads where Q % 4 == 0 and vals and out are
+    16-byte aligned, else one; lanes a row the power of two that covers the
+    column groups, at most 32 (Q = 64: 16 lanes, two rows a warp)."""
+    vec = q % 4 == 0 and vals_ptr % 16 == 0 and out_ptr % 16 == 0
+    groups = -(-q // (4 if vec else 1))
+    return vec, min(32, 1 << max(groups - 1, 0).bit_length())
+
+
+_BATCHED_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                     ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                     ctypes.c_int, ctypes.c_void_p)
+
+
+def ell_combine_batched_cuda(nbr: torch.Tensor, wgt: torch.Tensor, vals: torch.Tensor,
+                             compute: str, combine: str) -> torch.Tensor:
+    """Launch `csrc/ell_combine_batched.cu`: nbr int32 (R, W), wgt float32
+    (R, W), vals float32 (n+1, Q) -> (R, Q)."""
+    dev = vals.device
+    if compute not in COMPUTE_OPS or combine not in COMBINE_OPS:
+        raise ValueError(f"unsupported ops {compute!r}/{combine!r}")
+    p_nbr = _build.require(nbr, "nbr", torch.int32, 2, dev)
+    p_wgt = _build.require(wgt, "wgt", torch.float32, 2, dev)
+    p_vals = _build.require(vals, "vals", torch.float32, 2, dev)
+    r, w = nbr.shape
+    npad, q = vals.shape
+    if wgt.shape != nbr.shape:
+        raise ValueError(f"wgt {tuple(wgt.shape)} != nbr {tuple(nbr.shape)}")
+    if not 1 <= w <= MAX_WIDTH:
+        raise ValueError(f"slice width {w} outside [1, {MAX_WIDTH}]")
+    out = torch.empty((r, q), dtype=torch.float32, device=dev)
+    vec, lanes = batched_layout(q, p_vals, out.data_ptr())
+    fn = _build.entry("ell_combine_batched", "ell_combine_batched_launch",
+                      _BATCHED_ARGTYPES)
+    with _build.device_guard(dev):
+        err = fn(p_nbr, p_wgt, p_vals, out.data_ptr(), r, w, npad - 1, q, lanes,
+                 COMPUTE_OPS[compute], COMBINE_OPS[combine], int(vec),
+                 _build.stream_of(dev))
+    _build.check(err, "ell_combine_batched")
+    _build.LAUNCHES["ell_combine_batched"] += 1
     return out

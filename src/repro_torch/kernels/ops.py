@@ -2,7 +2,8 @@
 
 Port of `repro.kernels.ops`, the public kernel API: the three kernels on
 the solo engine's path, the deletion overlay, ELL SpMM, EmbeddingBag and
-flash attention. The pick is by the device of the tensor given: a CPU tensor goes to the
+flash attention; beside them the batched engine's Q-wide pull, which the
+reference leaves to XLA. The pick is by the device of the tensor given: a CPU tensor goes to the
 kernel's plain PyTorch version, a CUDA tensor to the CUDA kernel — or the call
 raises (nvcc missing, a refused launch). There is no fallback from one to the
 other.
@@ -36,6 +37,14 @@ def ell_combine(nbr, wgt, vals, compute: str, combine: str = "min", dead=None):
     if _route(vals) == "cuda":
         return _ell.ell_combine_cuda(nbr, wgt, vals, compute, combine, dead)
     return _ell.ell_combine_plain(nbr, wgt, vals, compute, combine, dead)
+
+
+def ell_combine_batched(nbr, wgt, vals, compute: str, combine: str = "min"):
+    """(R, Q) partials of one ELL slice for vertex-major vals (n+1, Q): the
+    batched engine's dense pull, the same halving tree over W per column."""
+    if _route(vals) == "cuda":
+        return _ell.ell_combine_batched_cuda(nbr, wgt, vals, compute, combine)
+    return _ell.ell_combine_batched_plain(nbr, wgt, vals, compute, combine)
 
 
 def ell_spmm(nbr, wgt, feats):

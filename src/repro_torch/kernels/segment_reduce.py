@@ -83,14 +83,13 @@ def segment_reduce_ordered(vals: torch.Tensor, seg_ids: torch.Tensor, num: int,
                            combine: str = "sum", fill: Optional[float] = None
                            ) -> torch.Tensor:
     """Plain model of the CUDA kernel's fold order (ids sorted ascending).
-    For D = 1 a segment of length L is reduced by its tier:
+    Each column of a segment of length L is reduced by its tier:
     L <= THREAD_SEG, one thread: a left fold; L <= LONG_SEG, one warp: lane
     l folds rows l, l + 32, ..., then a halving tree over the 32 lanes (the
     shuffle tree 16 .. 1); longer, one block: thread t folds rows t + 256k,
-    then a halving tree within each warp and one over the 8 warps. For
-    D > 1 (lanes over columns) a segment of up to LONG_SEG rows is a left
-    fold over its rows; a longer one has warp w fold rows w + 8k, then a
-    halving tree over the 8 warps."""
+    then a halving tree within each warp and one over the 8 warps. The order
+    does not depend on D, so column q of an (E, D) call is bit-equal to the
+    (E,) call on column q."""
     fill = identity(combine) if fill is None else fill
     e = vals.shape[0]
     d = vals.shape[1] if vals.dim() == 2 else 1
@@ -102,13 +101,9 @@ def segment_reduce_ordered(vals: torch.Tensor, seg_ids: torch.Tensor, num: int,
     if hi > lo:
         segs, counts = torch.unique_consecutive(ids, return_counts=True)
         starts = lo + torch.cumsum(counts, 0) - counts
-        if d == 1:
-            tiers = ((counts <= THREAD_SEG, 1, ()),
-                     ((counts > THREAD_SEG) & (counts <= LONG_SEG), WARP, (WARP,)),
-                     (counts > LONG_SEG, BLOCK, (BLOCK // WARP, WARP)))
-        else:
-            tiers = ((counts <= LONG_SEG, 1, ()),
-                     (counts > LONG_SEG, BLOCK // WARP, (BLOCK // WARP,)))
+        tiers = ((counts <= THREAD_SEG, 1, ()),
+                 ((counts > THREAD_SEG) & (counts <= LONG_SEG), WARP, (WARP,)),
+                 (counts > LONG_SEG, BLOCK, (BLOCK // WARP, WARP)))
         for pick, lanes, trees in tiers:
             acc = _lane_fold(v2, starts[pick], counts[pick], lanes, combine)
             if trees:

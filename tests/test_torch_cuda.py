@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card, against their plain PyTorch versions,
-and the engine's kernel pull against its torch pull. Every test is marked
-`cuda` and skips without a GPU.
+the engine's kernel pull against its torch pull, and the batched engine on
+the card against its plain path on the CPU. Every test is marked `cuda` and
+skips without a GPU.
 
 This file imports neither JAX nor the reference package, so it runs on a
 machine that has only PyTorch; there, skip the shared conftest (it builds
@@ -24,6 +25,8 @@ from repro_torch.kernels import frontier_pack as tfp
 from repro_torch.kernels import ops
 from repro_torch.kernels import segment_reduce as tsr
 from repro_torch.nn import layers as TL
+from repro_torch.serving import batch_engine as TBE
+from repro_torch.serving import default_config
 
 pytestmark = pytest.mark.cuda
 
@@ -465,3 +468,89 @@ def test_ell_spmm_unaligned_views_take_the_scalar_variants(cuda, w, shift, fshif
     assert fvec == {0: 4 if d % 4 == 0 else 2, 1: 1, 2: 2}[fshift]
     a = tell.ell_spmm_cuda(nbr, wgt, feats)
     torch.testing.assert_close(a, tell.ell_spmm_plain(nbr, wgt, feats), rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the batched engine's Q-wide pull, segment_reduce at D = Q, run_batch
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("w", [1, 2, 3, 4, 5, 8, 32, 256])
+@pytest.mark.parametrize("q", [1, 3, 4, 8, 64, 65])
+def test_ell_combine_batched_bit_equal_to_plain(cuda, w, q):
+    """Every op pair, sentinels anywhere in a row, on both variants: float4
+    columns (Q % 4 == 0, aligned) and the scalar one (other Q, and a vals
+    view 4 bytes into its storage)."""
+    rng = np.random.default_rng(w * 100 + q)
+    r, n = 37, 300
+    nb = rng.integers(0, n, (r, w)).astype(np.int32)
+    nb[rng.random((r, w)) < 0.3] = n
+    nbr = torch.from_numpy(nb).to(cuda)
+    wgt = torch.from_numpy(rng.random((r, w)).astype(np.float32)).to(cuda)
+    v = (rng.standard_normal((n + 1) * q + 1) * 10 ** rng.uniform(-3, 3, (n + 1) * q + 1))
+    v = v.astype(np.float32)
+    v[rng.random(v.shape[0]) < 0.2] = tell.BIG
+    flat = torch.from_numpy(v).to(cuda)
+    for shift in (0, 1):
+        vals = flat[shift:shift + (n + 1) * q].view(n + 1, q)
+        for op in tell.COMPUTE_OPS:
+            for comb in tell.COMBINE_OPS:
+                a = tell.ell_combine_batched_cuda(nbr, wgt, vals, op, comb)
+                b = tell.ell_combine_batched_plain(nbr, wgt, vals, op, comb)
+                assert torch.equal(_bits(a), _bits(b)), (op, comb, shift)
+                if q == 1:
+                    one = tell.ell_combine_cuda(nbr, wgt, vals[:, 0].contiguous(), op, comb)
+                    assert torch.equal(_bits(a[:, 0].contiguous()), _bits(one)), (op, comb)
+
+
+@pytest.mark.parametrize("d", [8, 64])
+@pytest.mark.parametrize("combine", ["sum", "min", "max"])
+def test_segment_reduce_columns_bit_equal_to_the_1d_call(cuda, d, combine):
+    """Column q of an (E, D) call is bit-equal to the (E,) call on column q,
+    at segment lengths on every side of the tier limits: the batched
+    engine's lanes against the solo engine."""
+    rng = np.random.default_rng(d)
+    edges = [1, tsr.THREAD_SEG, tsr.THREAD_SEG + 1, 32, 33, tsr.LONG_SEG, tsr.LONG_SEG + 1]
+    lens = [tsr.LONG_SEG + 1] + edges + [int(x) for x in rng.integers(1, 60, 30)] + [5000]
+    seg = np.cumsum(rng.integers(1, 3, len(lens)))
+    num = int(seg[-1]) + 2
+    ids = torch.from_numpy(np.repeat(seg, lens).astype(np.int32)).to(cuda)
+    v = rng.standard_normal((ids.shape[0], d)) * 10 ** rng.uniform(-3, 3, (ids.shape[0], d))
+    vals = torch.from_numpy(v.astype(np.float32)).to(cuda)
+    wide = tsr.segment_reduce_cuda(vals, ids, num, combine)
+    assert torch.equal(_bits(wide), _bits(tsr.segment_reduce_ordered(vals, ids, num, combine)))
+    for q in range(d):
+        one = tsr.segment_reduce_cuda(vals[:, q].contiguous(), ids, num, combine)
+        assert torch.equal(_bits(wide[:, q].contiguous()), _bits(one)), q
+
+
+@pytest.mark.parametrize("name,field", [("bfs", "dist"), ("sssp", "dist"), ("ppr", "rank")])
+def test_run_batch_on_the_card_equals_the_cpu_plain_path(cuda, name, field):
+    """rmat(12): the card (`ell_combine_batched`, `segment_reduce` at
+    D = Q, `frontier_pack`) against the plain versions on the CPU, bit for
+    bit, lanes and stats; every lane also equals the solo engine on the
+    card. Its largest in-degree (913) keeps every pull-merge segment within
+    THREAD_SEG rows, where the kernel's sum is the plain version's left
+    fold; the push's sums are min here."""
+    sources = [0, 5, 77, 4095, 5, 1000, 2, 3]
+    out = {}
+    for dev in ("cpu", cuda):
+        g = G.rmat(12, 16, seed=1, device=dev)
+        pack = pack_ell(g.inc)
+        assert max(int(torch.unique_consecutive(s.row_id, return_counts=True)[1].max())
+                   for s in pack.slices if s.rows) <= tsr.THREAD_SEG
+        cfg = default_config(g, max_iters=64)
+        ops.reset_launches()
+        out[str(dev)] = TBE.run_batch(A.ALL[name](0), g, pack, cfg, sources)
+        if dev != "cpu":
+            counts = ops.launch_counts()
+            assert counts["ell_combine_batched"] > 0 and counts["segment_reduce"] > 0
+            seq = TBE.run_sequential(lambda: A.ALL[name](0), g, pack, cfg, sources)
+            for lane in range(len(sources)):
+                assert torch.equal(_bits(out[str(dev)][0][field][:, lane].contiguous()),
+                                   _bits(seq[lane][field])), lane
+    (mc, sc), (mg, sg) = out["cpu"], out[str(cuda)]
+    for k in mc:
+        assert torch.equal(_bits(mc[k]), _bits(mg[k].cpu())), k
+    for k in ("per_query_iters", "push_iters", "pull_iters", "switches", "mode_trace"):
+        assert torch.equal(sc[k], sg[k].cpu()), k

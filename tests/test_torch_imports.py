@@ -41,11 +41,16 @@ def test_package_imports_without_jax():
         "from repro_torch.kernels import ops, ell_spmv, frontier_pack, segment_reduce\n"
         "from repro_torch.kernels import embedding_bag, flash_attention\n"
         "from repro_torch.nn import layers, chunked_attn\n"
+        "from repro_torch import obs, serving\n"
+        "from repro_torch.core import baselines\n"
+        "from repro_torch.serving import batch_engine, cache, scheduler\n"
         "g = generators.rmat(6, 4, seed=1, device='cpu')\n"
         "p = packing.pack_ell(g.inc)\n"
         "m, st = engine.run(algorithms.bfs(0), g, p,\n"
         "                   engine.EngineConfig(frontier_cap=g.n_nodes, edge_cap=g.n_edges))\n"
         "assert int(st['final_count']) == 0\n"
+        "mb, sb = serving.run_batch(algorithms.bfs(0), g, p, serving.default_config(g), [0, 3])\n"
+        "assert int(sb['final_count'].sum()) == 0\n"
         "assert not any(k == 'jax' or k.startswith(('jax.', 'repro.'))\n"
         "               for k, v in sys.modules.items() if v is not None)\n"
     )

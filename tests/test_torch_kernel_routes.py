@@ -42,9 +42,12 @@ def test_tf32_scratch_holds_the_split_planes(d, dp):
 
 
 def test_both_flash_kernels_and_frontier_pack_are_registered():
+    """Every kernel has a source and a launch counter; the batched pull has
+    a source of its own."""
     assert _build.KERNELS["flash_attention"] == "flash_attention_wgmma"
     assert _build.KERNELS["flash_attention_f32"] == "flash_attention"
     assert _build.KERNELS["frontier_pack"] == "frontier_pack"
+    assert _build.KERNELS["ell_combine_batched"] == "ell_combine_batched"
     assert set(_build.LAUNCHES) == set(_build.KERNELS)
     for source in _build.SOURCES:
         assert (_build.CSRC / f"{source}.cu").is_file(), source
@@ -76,6 +79,7 @@ def _c_params(source: str, symbol: str) -> list:
 
 @pytest.mark.parametrize("source,symbol,argtypes", [
     ("ell_combine", "ell_combine_launch", tell._ARGTYPES),
+    ("ell_combine_batched", "ell_combine_batched_launch", tell._BATCHED_ARGTYPES),
     ("ell_spmm", "ell_spmm_launch", tell._SPMM_ARGTYPES),
     ("frontier_pack", "frontier_pack_launch", tfp._ARGTYPES),
     ("segment_reduce", "segment_reduce_launch", tsr._ARGTYPES),

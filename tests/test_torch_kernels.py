@@ -250,10 +250,9 @@ def test_segment_reduce_ordered_edge_cases(case):
                                       (33, 1), (tsr.LONG_SEG + 1, 1), (40, 3),
                                       (tsr.LONG_SEG + 1, 3)])
 def test_segment_reduce_ordered_folds_in_the_kernels_order(length, d):
-    """One segment, written out by hand in each tier's order: a left fold
-    (thread tier; every D > 1 segment up to LONG_SEG), lanes of a warp then
-    its shuffle tree, threads of a block then the warp and block trees, or
-    warps of a block then a tree over them (D > 1)."""
+    """One segment, written out by hand in each tier's order, the same for
+    every column at any D: a left fold (thread tier), lanes of a warp then
+    its shuffle tree, threads of a block then the warp and block trees."""
     rng = np.random.default_rng(length)
     v = torch.from_numpy((rng.random((length, d)) * 10 ** rng.uniform(-3, 3, (length, d)))
                          .astype(np.float32))
@@ -266,16 +265,29 @@ def test_segment_reduce_ordered_folds_in_the_kernels_order(length, d):
             acc[r % p] = acc[r % p] + v[r]
         return acc
 
-    if d == 1 and length <= tsr.THREAD_SEG or d > 1 and length <= tsr.LONG_SEG:
+    if length <= tsr.THREAD_SEG:
         want = lanes(1)[0]
-    elif d == 1 and length <= tsr.LONG_SEG:
+    elif length <= tsr.LONG_SEG:
         want = tell.halving_tree(lanes(32), 0, "sum")
-    elif d == 1:
+    else:
         warps = tell.halving_tree(lanes(256).reshape(8, 32, d), 1, "sum")
         want = tell.halving_tree(warps, 0, "sum")
-    else:
-        want = tell.halving_tree(lanes(8), 0, "sum")
     assert torch.equal(got.view(torch.int32), want.reshape(d).view(torch.int32))
+
+
+@pytest.mark.parametrize("d", [3, 64])
+@pytest.mark.parametrize("combine", ["sum", "min", "max"])
+def test_segment_reduce_ordered_columns_fold_as_the_1d_call(d, combine):
+    """Column q of an (E, D) call is bit-equal to the (E,) call on column q
+    at every tier: what lets a batched lane equal the solo run."""
+    vals, ids, num = _tier_case(d, seed=10 + d)
+    v = torch.from_numpy((vals * 10 ** np.random.default_rng(d).uniform(-3, 3, vals.shape))
+                         .astype(np.float32))
+    sid = torch.from_numpy(ids)
+    wide = tsr.segment_reduce_ordered(v, sid, num, combine)
+    for q in range(d):
+        one = tsr.segment_reduce_ordered(v[:, q].contiguous(), sid, num, combine)
+        assert torch.equal(wide[:, q].contiguous().view(torch.int32), one.view(torch.int32))
 
 
 @pytest.mark.parametrize("w", [1, 3, 4, 5, 32, 256])
