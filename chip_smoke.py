@@ -13,16 +13,19 @@ Phases (any failure exits non-zero; nothing is caught):
                  ell_combine's and ell_spmm's LDG.E.128 (16-byte loads);
                  registers and spills of the TF32 flash kernel, ell_spmm
                  and ell_combine_batched (ptxas -v), the main path's
-                 instances by name;
+                 instances by name (ell_combine_batched: both routes at
+                 Q = 8 and 64 for copy/sum, add_w/min, hop/min, mul_w/sum);
   3. kernels   — each CUDA kernel against its plain PyTorch version on the
                  card over shape sweeps: ell_combine bit-equal at W in
                  {1, 2, 3, 4, 5, 8, 12, 16, 32, 64, 128, 256}, both its
                  16-byte and scalar variants (views 4 bytes into their
                  storage among them); ell_combine_batched bit-equal to its
-                 plain version at W in {1, 2, 3, 4, 5, 8, 32, 256} and Q in
-                 {1, 3, 4, 8, 64, 65}, all 12 op pairs, sentinels anywhere
-                 in a row, vals views 4 bytes into their storage, and at
-                 Q = 1 to the 1-D kernel; its deletion overlay bit-equal to the
+                 plain version at W in {1, 2, 3, 4, 5, 8, 32, 33, 256} and Q
+                 in {1, 3, 4, 8, 16, 64, 65}, on both routes (slot lanes and
+                 column lanes) at every Q, all 12 op pairs, sentinels
+                 anywhere in a row, vals views 4 bytes into their storage,
+                 sums also on values without BIG, and at Q = 1 to the 1-D
+                 kernel; its deletion overlay bit-equal to the
                  plain version and to the kernel on the neutralized copy;
                  frontier_pack bit-equal; segment_reduce bit-equal to
                  segment_reduce_ordered (its fold order) for sum, min and
@@ -57,7 +60,9 @@ Phases (any failure exits non-zero; nothing is caught):
   4. main path — RMAT scale 22, edge factor 16 (Graph500 a/b/c 0.57/0.19/
                  0.19, seed 1, undirected): each kernel timed at the main
                  path's shapes (ell_combine per slice, all 12 op pairs
-                 bit-equal there; segment_reduce at the push Combine's shape
+                 bit-equal there, and at copy/sum beside torch.sparse.mm of
+                 the slices' 0/1 CSR matrices; segment_reduce at the push
+                 Combine's shape
                  and at each slice's pull-merge shape, each bit-equal to
                  segment_reduce_ordered), then bfs, sssp, wcc, pagerank and
                  kcore(16) through `engine.run` with the kernel pull,
@@ -71,7 +76,9 @@ Phases (any failure exits non-zero; nothing is caught):
                  `kernels.ops` and `nn.layers`, counted: (a) the deletion
                  overlay on phase 4's ELL slices with 1 % of the real slots
                  dead, bit-equal to the kernel on the neutralized copy and to
-                 the plain version, all Compute x Combine ops; (b) ell_spmm
+                 the plain version, all Compute x Combine ops, and at
+                 copy/sum beside torch.sparse.mm without the dead slots;
+                 (b) ell_spmm
                  over the same slices at D = 64 (gin-tu) and D = 70
                  (gatedgcn); (c) embedding_bag over DeepFM's table (39 fields
                  x 100,000 rows x 10), B = 512, 16,384 and 262,144, sum and
@@ -100,8 +107,13 @@ Phases (any failure exits non-zero; nothing is caught):
                  and on the grid at 256, and at the grid's side (1024, edge
                  cap 4096) runs to the end bit-equal to full bfs;
   8. batched   — `serving.run_batch` at RMAT-22 with `default_config`:
-                 ell_combine_batched on each slice at Q = 8 and 64 beside
-                 its byte bound, plain version and torch.sparse.mm; then 64
+                 ell_combine_batched on each slice at Q = 8 and 64 (its
+                 route and lanes logged; copy/sum and add_w/min, at Q = 64
+                 hop/min and mul_w/sum too, each bit-equal to the plain
+                 version) beside its byte bound, plain version and
+                 torch.sparse.mm; segment_reduce at D = 64 at the union
+                 push's shape (E = 2n) and each pull merge's, beside
+                 index_add_; then 64
                  sources (vertex 0, 62 seeded draws of nonzero degree, one
                  repeated): bfs, sssp and ppr at Q = 64 counted
                  (ell_combine_batched, segment_reduce and frontier_pack
@@ -315,38 +327,64 @@ def sweep_ell(dev, rng, ell) -> float:
     return worst
 
 
+def other_route(ell, q: int, w: int, vec: bool):
+    """The `ell_combine_batched` route `batched_layout` does not pick at this
+    Q, laid out as `route_layout` lays it out."""
+    other = "slots" if ell.batched_layout(q, w, 0, 0).route == "columns" else "columns"
+    return ell.route_layout(other, q, w, vec)
+
+
 def sweep_batched(dev, rng, ell) -> float:
     """ell_combine_batched bit-equal to its plain version for every op pair,
-    at W in {1, 2, 3, 4, 5, 8, 32, 256} and Q in {1, 3, 4, 8, 64, 65}, with
-    sentinels anywhere in a row, on both variants (float4 columns where
-    Q % 4 == 0 and vals is aligned; scalar columns for other Q and for a vals
-    view 4 bytes into its storage); at Q = 1 also bit-equal to the 1-D
-    ell_combine kernel."""
+    at W in {1, 2, 3, 4, 5, 8, 32, 33, 256} and Q in {1, 3, 4, 8, 16, 64,
+    65}, with sentinels anywhere in a row, on both routes (the one
+    `batched_layout` picks and the other), each with float4 columns where
+    Q % 4 == 0 and vals is aligned and scalar columns for other Q and for a
+    vals view 4 bytes into its storage; values of both signs over two
+    decades (BIG among them for min and max; a sum's order shows only
+    without it) and over six decades with BIG among them; at Q = 1 also
+    bit-equal to the 1-D ell_combine kernel."""
     worst = 0.0
-    for w in (1, 2, 3, 4, 5, 8, 32, 256):
+    for w in (1, 2, 3, 4, 5, 8, 32, 33, 256):
         r, n = 41, 500
         nb = rng.integers(0, n, (r, w)).astype(np.int32)
         nb[rng.random((r, w)) < 0.3] = n                      # sentinels anywhere
         nbr = torch.from_numpy(nb).to(dev)
         wgt = torch.from_numpy(rng.random((r, w)).astype(np.float32)).to(dev)
-        for q in (1, 3, 4, 8, 64, 65):
-            v = rng.standard_normal((n + 1) * q + 1) * 10 ** rng.uniform(-3, 3, (n + 1) * q + 1)
-            v = v.astype(np.float32)
-            v[rng.random(v.shape[0]) < 0.2] = ell.BIG
-            flat = torch.from_numpy(v).to(dev)
+        for q in (1, 3, 4, 8, 16, 64, 65):
+            size = (n + 1) * q + 1
+            cases = []
+            for comb in ell.COMBINE_OPS:
+                v = (rng.standard_normal(size) * 10 ** rng.uniform(-1, 1, size)).astype(np.float32)
+                if comb != "sum":
+                    v[rng.random(size) < 0.2] = ell.BIG
+                cases.append((comb, torch.from_numpy(v).to(dev)))
+            # six decades with BIG among them, for every combine, from a
+            # generator of their own: the shared `rng` feeds the later sweeps,
+            # whose inputs (the flash sweep's dropped-key control among them)
+            # must not move with this sweep's cases
+            own = np.random.default_rng(w * 1000 + q)
+            v = (own.standard_normal(size) * 10 ** own.uniform(-3, 3, size)).astype(np.float32)
+            v[own.random(size) < 0.2] = ell.BIG
+            cases += [(comb, torch.from_numpy(v).to(dev)) for comb in ell.COMBINE_OPS]
             for shift in (0, 1):
-                vals = flat[shift:shift + (n + 1) * q].view(n + 1, q)
-                vec, lanes = ell.batched_layout(q, vals.data_ptr(), 0)
-                if vec != (q % 4 == 0 and shift == 0):
-                    raise AssertionError(f"ell_combine_batched Q={q} shift={shift}: vector {vec}")
+                vec = q % 4 == 0 and shift == 0
+                other = other_route(ell, q, w, vec)
                 for op in ell.COMPUTE_OPS:
-                    for comb in ell.COMBINE_OPS:
-                        a = ell.ell_combine_batched_cuda(nbr, wgt, vals, op, comb)
+                    for comb, flat in cases:
+                        vals = flat[shift:shift + (n + 1) * q].view(n + 1, q)
+                        if ell.batched_layout(q, w, vals.data_ptr(), 0).vector != vec:
+                            raise AssertionError(f"ell_combine_batched Q={q} shift={shift}: "
+                                                 f"vector layout is not {vec}")
                         b = ell.ell_combine_batched_plain(nbr, wgt, vals, op, comb)
+                        a = ell.ell_combine_batched_cuda(nbr, wgt, vals, op, comb)
+                        c = ell._launch_batched(nbr, wgt, vals, op, comb, other)
                         torch.cuda.synchronize()
-                        if not bit_equal(a, b):
+                        if not (bit_equal(a, b) and bit_equal(c, b)):
                             raise AssertionError(f"ell_combine_batched {op}/{comb} W={w} Q={q} "
-                                                 f"shift={shift} differs from its plain version")
+                                                 f"shift={shift} differs from its plain version "
+                                                 f"(picked route {bit_equal(a, b)}, {other} "
+                                                 f"{bit_equal(c, b)})")
                         if q == 1 and not bit_equal(
                                 a[:, 0].contiguous(),
                                 ell.ell_combine_cuda(nbr, wgt, vals[:, 0].contiguous(), op, comb)):
@@ -837,9 +875,15 @@ def slice_phase(dev, pack, ops, ell, bag, fa, L, report, err, rounded) -> dict:
         shape=f"{len(slices)} RMAT ELL slices, {slots} slots, add_w/min, 1 % dead",
         max_abs_err=err["ell_combine_overlay"], ms=cuda_ms(ovk, 10),
         plain_ms=cuda_ms(ovp, 3, 1), bound_ms=bnd[0], bound_by=bnd[1],
-        bound_all_slots_ms=bound_ms(slots * 9 + (n + 1) * 4 + rows * 4, slots * 2)[0],
-        library_ms=None)
-    del over, neutral, deads
+        bound_all_slots_ms=bound_ms(slots * 9 + (n + 1) * 4 + rows * 4, slots * 2)[0])
+    csrs = slice_csrs(slices, n, dev, deads)
+    report["ell_combine_overlay"].update(library_copy_sum(ell, slices, vals, csrs, deads))
+    r = report["ell_combine_overlay"]
+    log(f"[6 slice] (a) overlay copy/sum {r['copy_sum_ms']:.4f} ms (bound "
+        f"{r['copy_sum_bound_ms']:.4f}) against torch.sparse.mm without the dead slots "
+        f"{r['library_copy_sum_ms']:.4f} ms (max |kernel - sparse.mm| "
+        f"{r['library_max_abs_diff']:.3g})")
+    del over, neutral, deads, csrs
 
     # -- (b) ell_spmm ---------------------------------------------------------
     used = torch.zeros(n + 1, dtype=torch.bool, device=dev)
@@ -973,6 +1017,45 @@ def slice_phase(dev, pack, ops, ell, bag, fa, L, report, err, rounded) -> dict:
     return mine
 
 
+def slice_csrs(slices, n: int, dev, drop=None) -> list:
+    """Each ELL slice's (R, n + 1) 0/1 matrix as CSR, a 1 for every real
+    slot (not flagged in `drop`): torch.sparse.mm of it by vals is the one
+    library call that computes copy/sum."""
+    out = []
+    for i, s in enumerate(slices):
+        live = s.nbr != n
+        if drop is not None:
+            live = live & ~drop[i]
+        crow = torch.zeros(s.rows + 1, dtype=torch.int32, device=dev)
+        crow[1:] = live.sum(dim=1).cumsum(0)
+        col = s.nbr[live]
+        out.append(torch.sparse_csr_tensor(crow, col, torch.ones_like(col, dtype=torch.float32),
+                                           size=(s.rows, n + 1)))
+    return out
+
+
+def library_copy_sum(ell, slices, vals, csrs, dead=None) -> dict:
+    """ell_combine at copy/sum over the slices beside torch.sparse.mm of
+    their 0/1 CSR matrices by vals (as one column): times, bound (every id,
+    the flags with `dead`, vals and the output once), largest difference.
+    The row's `ms` is add_w/min, which no single library call computes, so
+    its `library_ms` is None and the pair is copy_sum_ms and
+    library_copy_sum_ms."""
+    n = vals.shape[0] - 1
+    deads = dead or [None] * len(slices)
+    kern = lambda: [ell.ell_combine_cuda(s.nbr, s.wgt, vals, "copy", "sum", d)
+                    for s, d in zip(slices, deads)]
+    col = vals[:, None]
+    lib = lambda: [torch.sparse.mm(c, col) for c in csrs]
+    diff = max(abs_err(a, b[:, 0]) for a, b in zip(kern(), lib()))
+    slots = sum(s.nbr.numel() for s in slices)
+    rows = sum(s.rows for s in slices)
+    bnd = bound_ms(slots * (5 if dead else 4) + (n + 1) * 4 + rows * 4, 0)
+    return dict(copy_sum_ms=cuda_ms(kern, 10), copy_sum_bound_ms=bnd[0],
+                library_ms=None, library_copy_sum_ms=cuda_ms(lib, 5), library_max_abs_diff=diff,
+                library_op="copy/sum: torch.sparse.mm of each slice's 0/1 CSR by vals")
+
+
 # ---------------------------------------------------------------------------
 # phases 7 and 8: the baseline engines, the batched engine
 # ---------------------------------------------------------------------------
@@ -1062,33 +1145,52 @@ def baselines_phase(A, E, Bl, label: str, g, pack, online_caps, hold_pagerank: b
             + ("overflowed, as it must" if failed else "no overflow; bit-equal to full bfs"))
 
 
-def time_batched_kernel(dev, ell, pack, report, err) -> None:
-    """ell_combine_batched on each RMAT-22 slice at Q = 8 and 64: bit-equal
-    to its plain version (copy/sum and add_w/min), timed beside its bound
-    by bytes (every id, the real slots' weights, vals and the output once;
-    and with one Q-vector a real slot, the gathers' traffic without reuse),
-    the plain version and torch.sparse.mm of the slice's
-    (R, n + 1) 0/1 matrix by vals (the single library call for copy/sum).
-    Fills report["ell_combine_batched"] (Q = 64 at the top, Q = 8 under
-    `q8`). These launches are not counted."""
+def time_batched_kernel(dev, ell, sr, g, pack, report, err) -> None:
+    """ell_combine_batched on each RMAT-22 slice at Q = 8 and 64, on the
+    route `batched_layout` picks (logged with its lanes): bit-equal to its
+    plain version for copy/sum and add_w/min, and at Q = 64 for hop/min and
+    mul_w/sum too; each timed beside its bound by bytes (every id, the real
+    slots' weights where the op reads them, the output, and once each the
+    Q-vectors of vals that the live ids name: a slice's own distinct ids,
+    over the four slices the union of theirs; and with one Q-vector a real
+    slot, the gathers' traffic without reuse), the plain version (copy/sum)
+    and torch.sparse.mm of the slice's (R, n + 1) 0/1 matrix by vals (the
+    single library call for copy/sum). Then
+    segment_reduce at the batched engine's shapes (D = 64): the union push
+    (E = edge_cap = 2n lanes of sorted destination ids, num = n) and each
+    slice's pull merge (E = its rows, num = n + 1), each held first by
+    `check_segment` (sum, min and max bit-equal to segment_reduce_ordered),
+    timed beside index_add_. Fills
+    report["ell_combine_batched"] (Q = 64 at the top, Q = 8 under `q8`) and
+    report["segment_reduce"]["batched"]. These launches are not counted."""
     n, slices = pack.n_nodes, pack.slices
     gen = torch.Generator(device=dev)
     gen.manual_seed(17)
-    csrs, reals = [], []
+    csrs = slice_csrs(slices, n, dev)
+    reals = [int((s.nbr != n).sum()) for s in slices]
+    # the rows of vals each slice's live ids name, and those the pull names
+    named = torch.zeros(n + 1, dtype=torch.bool, device=dev)
+    distinct = []
     for s in slices:
-        live = s.nbr != n
-        crow = torch.zeros(s.rows + 1, dtype=torch.int32, device=dev)
-        crow[1:] = live.sum(dim=1).cumsum(0)
-        col = s.nbr[live]
-        csrs.append(torch.sparse_csr_tensor(crow, col, torch.ones_like(col, dtype=torch.float32),
-                                            size=(s.rows, n + 1)))
-        reals.append(int(live.sum()))
+        seen = torch.zeros(n + 1, dtype=torch.bool, device=dev)
+        seen[s.nbr.reshape(-1).long()] = True
+        seen[n] = False
+        distinct.append(int(seen.sum()))
+        named |= seen
+    distinct_all = int(named.sum())
+    del named, seen
+    log(f"[8 batched] distinct live ids a slice {distinct}, over the pull {distinct_all} "
+        f"of n = {n}")
     per_q, worst = {}, err["ell_combine_batched"]
     for q in (8, 64):
         vals = torch.rand(n + 1, q, device=dev, generator=gen) * 64
+        pairs = [("copy", "sum"), ("add_w", "min")]
+        if q == 64:
+            pairs += [("hop", "min"), ("mul_w", "sum")]
         rows = []
-        for s, c, rl in zip(slices, csrs, reals):
-            for op, comb in (("copy", "sum"), ("add_w", "min")):
+        for s, c, rl, nd in zip(slices, csrs, reals, distinct):
+            lay = ell.batched_layout(q, s.width, vals.data_ptr(), 0)
+            for op, comb in pairs:
                 a = ell.ell_combine_batched_cuda(s.nbr, s.wgt, vals, op, comb)
                 b = ell.ell_combine_batched_plain(s.nbr, s.wgt, vals, op, comb)
                 if not bit_equal(a, b):
@@ -1097,46 +1199,102 @@ def time_batched_kernel(dev, ell, pack, report, err) -> None:
                 worst = max(worst, abs_err(a, b))
             lib_diff = abs_err(ell.ell_combine_batched_cuda(s.nbr, s.wgt, vals, "copy", "sum"),
                                torch.sparse.mm(c, vals))
-            # each input read once (every id, the real slots' weights, vals),
-            # the output written once; beside it the gathers' bound, one
-            # Q-vector a real slot
-            bnd = bound_ms(s.nbr.numel() * 4 + rl * 4 + (n + 1) * q * 4 + s.rows * q * 4, rl * q)
-            gather = bound_ms(s.nbr.numel() * 4 + rl * 4 + rl * q * 4 + s.rows * q * 4, rl * q)
+            times = {f"{op}/{comb}": cuda_ms(lambda s=s, op=op, comb=comb:
+                                             ell.ell_combine_batched_cuda(s.nbr, s.wgt, vals,
+                                                                          op, comb), 10)
+                     for op, comb in pairs}
+            # each input read once (every id, the real slots' weights where
+            # the op reads them, the Q-vectors the live ids name), the output
+            # written once; beside it the gathers' bound, one Q-vector a real
+            # slot
+            ids, out = s.nbr.numel() * 4, s.rows * q * 4
+            bnd = bound_ms(ids + nd * q * 4 + out, rl * q)
+            wbnd = bound_ms(ids + rl * 4 + nd * q * 4 + out, rl * q)
+            gather = bound_ms(ids + rl * 4 + rl * q * 4 + out, rl * q)
             row = dict(
-                shape=[s.rows, s.width], real_slots=rl,
-                ms=cuda_ms(lambda s=s: ell.ell_combine_batched_cuda(s.nbr, s.wgt, vals, "copy",
-                                                                    "sum"), 10),
-                min_ms=cuda_ms(lambda s=s: ell.ell_combine_batched_cuda(s.nbr, s.wgt, vals,
-                                                                        "add_w", "min"), 10),
+                shape=[s.rows, s.width], real_slots=rl, distinct_ids=nd, route=lay.route,
+                column_lanes=lay.column_lanes, slot_groups=lay.slot_groups, vector=lay.vector,
+                ms=times["copy/sum"], min_ms=times["add_w/min"], times=times,
                 plain_ms=cuda_ms(lambda s=s: ell.ell_combine_batched_plain(s.nbr, s.wgt, vals,
                                                                            "copy", "sum"), 1, 0),
                 library_ms=cuda_ms(lambda c=c: torch.sparse.mm(c, vals), 5),
-                bound_ms=bnd[0], bound_by=bnd[1], bound_gather_ms=gather[0],
-                library_max_abs_diff=lib_diff)
+                bound_ms=bnd[0], bound_by=bnd[1], min_bound_ms=wbnd[0],
+                bound_gather_ms=gather[0], library_max_abs_diff=lib_diff)
             rows.append(row)
             log(f"[8 batched] ell_combine_batched Q={q} slice {tuple(s.nbr.shape)}, {rl} real "
-                f"slots: copy/sum {row['ms']:.4f} ms, add_w/min {row['min_ms']:.4f} ms (bound "
-                f"{row['bound_ms']:.4f} by {row['bound_by']}, {row['bound_gather_ms']:.4f} with "
-                f"a Q-vector a real slot); plain {row['plain_ms']:.4f}; "
-                f"torch.sparse.mm {row['library_ms']:.4f} (max |kernel - sparse.mm| "
-                f"{lib_diff:.3g}); bit-equal to plain for copy/sum and add_w/min")
+                f"slots: route {lay.route}, {lay.column_lanes} column lanes x "
+                f"{lay.slot_groups} slot groups, 16-byte columns {lay.vector}; "
+                + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items())
+                + f" (bound {row['bound_ms']:.4f} by {row['bound_by']}, {row['min_bound_ms']:.4f}"
+                f" with weights, {row['bound_gather_ms']:.4f} with a Q-vector a real slot); "
+                f"plain {row['plain_ms']:.4f}; torch.sparse.mm {row['library_ms']:.4f} (max "
+                f"|kernel - sparse.mm| {lib_diff:.3g}); {len(pairs)} op pairs bit-equal to plain")
         tot = {k: sum(r[k] for r in rows) for k in ("ms", "min_ms", "plain_ms", "library_ms",
-                                                     "bound_ms", "bound_gather_ms")}
+                                                     "bound_gather_ms")}
+        # over the pull, vals's named rows count once (as row 1 counts vals)
+        ids = sum(s.nbr.numel() * 4 + s.rows * q * 4 for s in slices)
+        tot["bound_ms"] = bound_ms(ids + distinct_all * q * 4, sum(reals) * q)[0]
+        tot["min_bound_ms"] = bound_ms(ids + sum(reals) * 4 + distinct_all * q * 4,
+                                       sum(reals) * q)[0]
+        tot["times"] = {k: sum(r["times"][k] for r in rows) for k in rows[0]["times"]}
         per_q[q] = dict(tot, slices=rows)
-        log(f"[8 batched] ell_combine_batched Q={q}, 4 slices: copy/sum {tot['ms']:.4f} ms, "
-            f"add_w/min {tot['min_ms']:.4f}, bound {tot['bound_ms']:.4f} (with a Q-vector a "
-            f"real slot {tot['bound_gather_ms']:.4f}), plain "
+        log(f"[8 batched] ell_combine_batched Q={q}, 4 slices: "
+            + ", ".join(f"{k} {v:.4f} ms" for k, v in tot["times"].items())
+            + f"; bound {tot['bound_ms']:.4f} ({tot['min_bound_ms']:.4f} with weights, "
+            f"{tot['bound_gather_ms']:.4f} with a Q-vector a real slot), plain "
             f"{tot['plain_ms']:.4f}, torch.sparse.mm {tot['library_ms']:.4f}")
         del vals
+    del csrs
     top = per_q[64]
     report["ell_combine_batched"] = dict(
         replaces="src/repro/serving/batch_engine.py:222 (XLA, no Pallas kernel)",
         shape=f"{len(slices)} RMAT ELL slices, {sum(reals)} real slots, Q=64, copy/sum "
               f"(Q=8 under q8)",
-        max_abs_err=worst, ms=top["ms"], min_ms=top["min_ms"], plain_ms=top["plain_ms"],
-        bound_ms=top["bound_ms"], bound_by="bytes", bound_gather_ms=top["bound_gather_ms"],
-        library_ms=top["library_ms"],
-        slices=top["slices"], q8=per_q[8])
+        max_abs_err=worst, ms=top["ms"], min_ms=top["min_ms"], times=top["times"],
+        plain_ms=top["plain_ms"], bound_ms=top["bound_ms"], bound_by="bytes",
+        min_bound_ms=top["min_bound_ms"], bound_gather_ms=top["bound_gather_ms"],
+        library_ms=top["library_ms"], slices=top["slices"], q8=per_q[8])
+
+    # segment_reduce at the batched engine's shapes, D = 64
+    d = 64
+    e = 2 * n                                      # default_config's edge_cap
+    pick = torch.randint(0, g.n_edges, (e,), device=dev, generator=gen)
+    ids = torch.sort(g.out.col_idx[pick]).values
+    ids64 = ids.long()
+    sv = torch.rand(e, d, device=dev, generator=gen)
+    s_err = check_segment(sr, sv, ids, n, f"at the batched push shape D={d}")
+    lib_out = torch.zeros(n, d, device=dev)
+    bnd = bound_ms(e * 4 + e * d * 4 + n * d * 4, e * d)
+    push = dict(E=e, D=d, num=n, ms=cuda_ms(lambda: sr.segment_reduce_cuda(sv, ids, n, "sum")),
+                min_ms=cuda_ms(lambda: sr.segment_reduce_cuda(sv, ids, n, "min")),
+                bound_ms=bnd[0], bound_by=bnd[1],
+                library_ms=cuda_ms(lambda: lib_out.index_add_(0, ids64, sv), 5))
+    log(f"[8 batched] segment_reduce batched push E={e} D={d} num={n}: sum {push['ms']:.4f} ms, "
+        f"min {push['min_ms']:.4f}, bound {push['bound_ms']:.4f} by {push['bound_by']}, "
+        f"index_add_ {push['library_ms']:.4f}; sum, min, max bit-equal to "
+        f"segment_reduce_ordered")
+    del pick, ids, ids64, sv, lib_out
+    merges = []
+    lib_out = torch.zeros(n + 1, d, device=dev)
+    for s in slices:
+        part = torch.rand(s.rows, d, device=dev, generator=gen)
+        s_err = max(s_err, check_segment(sr, part, s.row_id, n + 1,
+                                         f"at the batched merge shape E={s.rows} D={d}"))
+        rid64 = s.row_id.long()
+        bnd = bound_ms(s.rows * 4 + s.rows * d * 4 + (n + 1) * d * 4, s.rows * d)
+        # the kernel (over 0.1 ms, an (n + 1, 64) output a call) by CUDA
+        # events; index_add_ (in place, down to 0.08 ms) by CUDA-graph replay
+        merges.append(dict(
+            rows=s.rows,
+            ms=cuda_ms(lambda: sr.segment_reduce_cuda(part, s.row_id, n + 1, "sum"), 20, 3, 3),
+            bound_ms=bnd[0], library_ms=graph_ms(lambda: lib_out.index_add_(0, rid64, part))))
+        r = merges[-1]
+        log(f"[8 batched] segment_reduce merge E={s.rows} D={d} num={n + 1}: {r['ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.4f}, index_add_ {r['library_ms']:.4f} (CUDA graph); "
+            f"sum, min, max bit-equal to segment_reduce_ordered")
+    del lib_out, part, rid64
+    report["segment_reduce"]["batched"] = dict(push=push, merges=merges)
+    report["segment_reduce"]["max_abs_err"] = max(report["segment_reduce"]["max_abs_err"], s_err)
 
 
 def batched_phase(dev, A, E, S, BE, obs, ops, ell, g, pack, report) -> int:
@@ -1146,7 +1304,9 @@ def batched_phase(dev, A, E, S, BE, obs, ops, ell, g, pack, report) -> int:
     63). Counted run: bfs, sssp and ppr at Q = 64 (ell_combine_batched,
     segment_reduce and frontier_pack launches against the steps taken);
     lanes 0-6 and 63 bit-equal to solo engine.run, the duplicate pair
-    equal, lanes 0 and 1 of bfs/sssp equal to scipy; warm times and
+    equal, lanes 0 and 1 of bfs/sssp equal to scipy; ppr at Q = 8 (the
+    slot-lanes route) counted the same way, lanes 0, 1, 7 bit-equal to
+    solo engine.run; warm times and
     queries/s at Q = 1, 8, 64; pagerank at Q = 2 bit-equal to solo; ppr with
     the masked pull (frac 0.65) beside the dense pull (its frozen sub-tol
     drift logged), ppr_delta's masked pull bit-equal to its dense pull at a
@@ -1196,6 +1356,7 @@ def batched_phase(dev, A, E, S, BE, obs, ops, ell, g, pack, report) -> int:
     if mine != want:
         raise AssertionError(f"batched launches {mine}, expected {want} from {pushes} pushes "
                              f"and {pulls} pulls")
+    report["segment_reduce"]["batched"].update(launches_push=pushes, launches_merge=k * pulls)
 
     # -- lanes against solo engine.run and scipy ------------------------------
     lanes = [0, 1, 2, 3, 4, 5, 6, 63]
@@ -1220,6 +1381,34 @@ def batched_phase(dev, A, E, S, BE, obs, ops, ell, g, pack, report) -> int:
     log(f"[8 batched] bfs and sssp lanes 0 and 1 equal scipy's distances "
         f"({time.perf_counter() - t0:.1f} s)")
     del runs
+
+    # -- the slot-lanes route, counted: ppr at Q = 8 ---------------------------
+    routes = {ell.batched_layout(8, s.width, 0, 0).route for s in pack.slices}
+    if routes != {"slots"}:
+        raise AssertionError(f"Q=8 takes the routes {routes}, not slot lanes alone")
+    ops.reset_launches()
+    (mm, ss), t = timed(lambda: S.run_batch(A.ppr(0), g, pack, cfg, sources[:8]))
+    counts8 = ops.launch_counts()
+    last = int(torch.argmax(ss["per_query_iters"]))
+    push8, pull8 = int(ss["push_iters"][last]), int(ss["pull_iters"][last])
+    want = {"ell_combine_batched": k * pull8, "frontier_pack": push8,
+            "segment_reduce": push8 + k * pull8}
+    mine = {key: counts8[key] for key in want}
+    if pull8 <= 0 or mine != want:
+        raise AssertionError(f"batched ppr Q=8 launches {mine}, expected {want} from {push8} "
+                             f"pushes and {pull8} pulls")
+    lanes8 = [0, 1, 7]
+    for lane in lanes8:
+        solo, _ = E.run(A.ppr(sources[lane]), g, pack, cfg)
+        for f in mm:
+            if not bit_equal(mm[f][:, lane].contiguous(), solo[f]):
+                raise AssertionError(f"batched ppr Q=8 lane {lane} field {f!r} differs from "
+                                     "solo engine.run")
+    log(f"[8 batched] ppr Q=8 (counted run, slot lanes on every slice): {t:.3f} s, {push8} "
+        f"pushes, {pull8} pulls, launches {mine}; lanes {lanes8} bit-equal to solo engine.run "
+        f"in every field")
+    report["ell_combine_batched"]["launches_q8"] = mine["ell_combine_batched"]
+    del mm, ss
 
     # -- warm times and queries/s ---------------------------------------------
     for name, (field, make) in progs.items():
@@ -1367,13 +1556,18 @@ def main() -> int:
     # registers and spills of every instance; the main path's by name:
     # flash_kernel<float, DP = 128, causal, cp.async>; spmm_kernel<float, V, L, C>
     # at D = 64 (V = 4, L = 16, C = 1) and D = 70 (V = 2, L = 16, C = 3)
-    # ell_batched<C, K, V, LOGCH> at Q = 64 (V = 4), p >= 8 (LOGCH = 3): copy/sum
-    # (ppr) and hop/min (bfs)
-    for source, main in ((_build.KERNELS[fa.TF32], "flash_kernelIfLi128ELb1ELb1E"),
+    # ell_combine_batched at Q = 64: column_lanes<C, K, V = 4, MAX_UP> with
+    # MAX_UP = 4 on the 256-wide slices and 2 on the others; at Q = 8:
+    # slot_lanes<C, K, V = 4, NS> with NS = 8 on the 256-wide slices and 1 on
+    # the others; for copy/sum (ppr), add_w/min (sssp), hop/min (bfs) and
+    # mul_w/sum
+    batched = [("ell_combine_batched", f"{kind}ILi{c}ELi{k}ELi4ELi{t}E")
+               for c, k in ((2, 2), (1, 0), (0, 0), (3, 2))
+               for kind, t in (("column_lanes", 4), ("column_lanes", 2), ("slot_lanes", 8),
+                               ("slot_lanes", 1))]
+    for source, main in [(_build.KERNELS[fa.TF32], "flash_kernelIfLi128ELb1ELb1E"),
                          ("ell_spmm", "spmm_kernelIfLi4ELi16ELi1E"),
-                         ("ell_spmm", "spmm_kernelIfLi2ELi16ELi3E"),
-                         ("ell_combine_batched", "ell_batchedILi2ELi2ELi4ELi3E"),
-                         ("ell_combine_batched", "ell_batchedILi0ELi0ELi4ELi3E")):
+                         ("ell_spmm", "spmm_kernelIfLi2ELi16ELi3E")] + batched:
         per = ptxas_instances(_build.ptxas_report(source))
         regs = sorted({x[2] for x in per})
         spill = sum(x[1] for x in per)
@@ -1445,7 +1639,14 @@ def main() -> int:
         max_abs_err=max(e_err, err["ell_combine"]), ms=cuda_ms(ell_k, 10),
         plain_ms=cuda_ms(ell_p, 3, 1), bound_ms=bnd[0], bound_by=bnd[1],
         bound_all_slots_ms=bound_ms(slots * 8 + (n + 1) * 4 + rows * 4, slots * 2)[0],
-        slices=per_slice, library_ms=None)
+        slices=per_slice)
+    csrs = slice_csrs(pack.slices, n, dev)
+    report["ell_combine"].update(library_copy_sum(ell, pack.slices, vals, csrs))
+    del csrs
+    r = report["ell_combine"]
+    log(f"[4 main] ell_combine copy/sum {r['copy_sum_ms']:.4f} ms (bound "
+        f"{r['copy_sum_bound_ms']:.4f}) against torch.sparse.mm {r['library_copy_sum_ms']:.4f} ms (max "
+        f"|kernel - sparse.mm| {r['library_max_abs_diff']:.3g})")
 
     mask = torch.rand(n, device=dev) < 0.5
     pk = lambda: fp.frontier_pack_cuda(mask, n)
@@ -1597,7 +1798,7 @@ def main() -> int:
 
     # -- phase 8: the batched engine at RMAT-22 -------------------------------
     t0 = time.perf_counter()
-    time_batched_kernel(dev, ell, pack, report, err)
+    time_batched_kernel(dev, ell, sr, g, pack, report, err)
     launches["ell_combine_batched"] = batched_phase(dev, A, E, S, BE, obs, ops, ell, g, pack,
                                                     report)
     log(f"[8 batched] phase {time.perf_counter() - t0:.1f} s")

@@ -10,6 +10,7 @@
     python3 scripts/port_kernel_probe.py spmm [--root DIR] [--parent DIR]
     python3 scripts/port_kernel_probe.py bag [--root DIR] [--parent DIR]
     python3 scripts/port_kernel_probe.py bagvar [--parent DIR]
+    python3 scripts/port_kernel_probe.py batched [--root DIR] [--parent DIR]
 
 tiles    — builds `csrc/flash_attention_wgmma.cu` with -DFLASH_WGMMA_PROBE
            into `build/probe/` (the same kernel, whose kv-tile width and
@@ -90,6 +91,18 @@ bagvar   — builds copies of `csrc/embedding_bag.cu` with other gathers in
            times each on ids confined to 19.5 MB of rows (L2 holds them),
            and twice on the whole table (same bags each call, and a new
            window each call). CUDA-graph replay.
+batched  — `ell_combine_batched_cuda` on the four ELL slices of RMAT scale
+           22 (edge factor 16, seed 1, undirected) at Q = 8 and 64, copy/sum
+           and add_w/min, per slice and all four; --root and --parent as
+           for flash32 (parent, change, change, parent on the same inputs),
+           each output bit-equal to the first tree's. Then this tree's
+           kernel on every layout it takes (`candidate_layouts`: slot lanes
+           with L lanes a row, column lanes with S slot groups) at Q = 4, 8,
+           16, 32 and 64, copy/sum, slice by slice, each bit-equal to the
+           plain version: what `batched_layout` should pick.
+           Last, the control: every live id replaced by a uniform draw from
+           [0, n), copy/sum at Q = 8 and 64; its gap to the real ids is the
+           L2 reuse that the hubs give. CUDA events.
 
 It fails where there is no GPU or a variant does not build or disagrees.
 """
@@ -325,8 +338,9 @@ def flash32(dev, root: Path, parent) -> None:
                 log(f"[flash32] change: {what}: {e.key[:60]} {us / 10:.2f} us a call")
 
 
-def spmm(dev, root: Path, parent) -> None:
-    order = trees_in_turns(root, parent, ("ell_spmv",))
+def rmat22_slices(dev):
+    """The ELL slices of RMAT scale 22 (edge factor 16, seed 1, undirected)
+    and n: the main path's graph."""
     from repro_torch.graph import generators as G
     from repro_torch.graph import pack_ell
     from repro_torch.graph.csr import from_edges
@@ -335,8 +349,12 @@ def spmm(dev, root: Path, parent) -> None:
     g = from_edges(src, dst, 1 << 22, w, directed=False, device=dev)
     del src, dst, w
     pack = pack_ell(g.inc)
-    n = g.n_nodes
-    del g
+    return pack.slices, g.n_nodes
+
+
+def spmm(dev, root: Path, parent) -> None:
+    order = trees_in_turns(root, parent, ("ell_spmv",))
+    slices, n = rmat22_slices(dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(15)
     feats = {}
@@ -344,34 +362,34 @@ def spmm(dev, root: Path, parent) -> None:
         feats[d] = torch.rand(n + 1, d, device=dev, generator=gen)
         feats[d][n] = 0.0
     csrs = []
-    for s in pack.slices:
+    for s in slices:
         live = s.nbr != n
         crow = torch.zeros(s.rows + 1, dtype=torch.int32, device=dev)
         crow[1:] = live.sum(dim=1).cumsum(0)
         csrs.append(torch.sparse_csr_tensor(crow, s.nbr[live], s.wgt[live],
                                             size=(s.rows, n + 1)))
-    real = sum(int((s.nbr != n).sum()) for s in pack.slices)
+    real = sum(int((s.nbr != n).sum()) for s in slices)
     log(f"[spmm] RMAT 22: n={n}, {real} live slots, slices "
-        f"{[tuple(s.nbr.shape) for s in pack.slices]}")
+        f"{[tuple(s.nbr.shape) for s in slices]}")
     ref = {}
     for label, ell in order:
         for d, f in feats.items():
-            outs = [ell.ell_spmm_cuda(s.nbr, s.wgt, f) for s in pack.slices]
+            outs = [ell.ell_spmm_cuda(s.nbr, s.wgt, f) for s in slices]
             if d not in ref:
                 ref[d] = outs
             for a, b in zip(outs, ref[d]):
                 torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
             del outs
             per = [cuda_ms(lambda s=s: ell.ell_spmm_cuda(s.nbr, s.wgt, f), 10, 2, 3)
-                   for s in pack.slices]
-            ms = cuda_ms(lambda: [ell.ell_spmm_cuda(s.nbr, s.wgt, f) for s in pack.slices],
+                   for s in slices]
+            ms = cuda_ms(lambda: [ell.ell_spmm_cuda(s.nbr, s.wgt, f) for s in slices],
                          5, 2, 3)
             lib = cuda_ms(lambda: [torch.sparse.mm(c, f) for c in csrs], 5, 2, 3)
             log(f"[spmm] {label}: D={d}: {ms:.4f} ms (slices {[round(x, 4) for x in per]}), "
                 f"torch.sparse.mm {lib:.4f} ms; row requests {real * d * 4 / ms / 1e9:.3f} TB/s")
     ell = order[1 if parent is not None else 0][1]
     uniform = []
-    for s in pack.slices:
+    for s in slices:
         live = s.nbr != n
         ids = torch.randint(0, n, s.nbr.shape, device=dev, generator=gen, dtype=torch.int32)
         uniform.append((torch.where(live, ids, n), s.wgt))
@@ -441,6 +459,89 @@ def combine(dev, root: Path, parent) -> None:
             us = getattr(e, "self_device_time_total", 0) or 0
             if us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
                 log(f"[combine] change: {what}: {e.key[:60]} {us / 10:.2f} us a call")
+
+
+def candidate_layouts(ell, q: int, w: int) -> list:
+    """Every layout `ell_combine_batched`'s kernel takes at Q and width W,
+    16-byte columns where Q % 4 == 0: slot lanes with L lanes a row (p / 8 <=
+    L <= min(p, 32)), and column lanes with G lanes over the columns (as
+    `batched_layout` sets them for wide Q) and S slot groups (S <= p,
+    G S <= 32)."""
+    vec = q % 4 == 0
+    p = 1 << max(w - 1, 0).bit_length()
+    out = [ell.BatchedLayout("slots", vec, 1, lanes) for lanes in (1, 2, 4, 8, 16, 32)
+           if max(p // 8, 1) <= lanes <= min(p, 32)]
+    cols = min(32, 1 << max(-(-q // (4 if vec else 1)) - 1, 0).bit_length())
+    out += [ell.BatchedLayout("columns", vec, cols, groups) for groups in (1, 2, 4, 8, 16, 32)
+            if groups <= min(32 // cols, p)]
+    return out
+
+
+def batched(dev, root: Path, parent) -> None:
+    order = trees_in_turns(root, parent, ("ell_spmv",))
+    slices, n = rmat22_slices(dev)
+    real = sum(int((s.nbr != n).sum()) for s in slices)
+    log(f"[batched] RMAT 22: n={n}, {real} real slots, slices "
+        f"{[tuple(s.nbr.shape) for s in slices]}")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(18)
+    vals = {q: torch.rand(n + 1, q, device=dev, generator=gen) * 64 for q in (4, 8, 16, 32, 64)}
+    ref = {}
+    for label, ell in order:
+        for q in (8, 64):
+            for op, comb in (("copy", "sum"), ("add_w", "min")):
+                v = vals[q]
+                for i, s in enumerate(slices):
+                    got = ell.ell_combine_batched_cuda(s.nbr, s.wgt, v, op, comb)
+                    key = (q, op, i)
+                    if key not in ref:
+                        ref[key] = got
+                    elif not torch.equal(got.view(torch.int32), ref[key].view(torch.int32)):
+                        raise AssertionError(f"{label}: Q={q} {op}/{comb} slice {i} differs "
+                                             "between the trees")
+                per = [cuda_ms(lambda s=s: ell.ell_combine_batched_cuda(s.nbr, s.wgt, v, op,
+                                                                        comb), 10, 2, 3)
+                       for s in slices]
+                log(f"[batched] {label}: Q={q} {op}/{comb}: {sum(per):.4f} ms (slices "
+                    f"{[round(x, 4) for x in per]})")
+    ref.clear()
+    ell = order[1 if parent is not None else 0][1]
+    for q, v in vals.items():
+        best = 0.0
+        for s in slices:
+            want = ell.ell_combine_batched_plain(s.nbr, s.wgt, v, "copy", "sum")
+            picked = ell.batched_layout(q, s.width, v.data_ptr(), 0)
+            times = {}
+            for lay in candidate_layouts(ell, q, s.width):
+                got = ell._launch_batched(s.nbr, s.wgt, v, "copy", "sum", lay)
+                if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+                    raise AssertionError(f"{lay} Q={q} differs from the plain version on the "
+                                         f"{tuple(s.nbr.shape)} slice")
+                del got
+                times[lay] = cuda_ms(lambda lay=lay: ell._launch_batched(
+                    s.nbr, s.wgt, v, "copy", "sum", lay), 10, 2, 3)
+            del want
+            best += min(times.values())
+            log(f"[batched] change: Q={q} slice {tuple(s.nbr.shape)} copy/sum by layout: "
+                + ", ".join(f"{lay.route} {lay.column_lanes}x{lay.slot_groups}"
+                            f"{' (picked)' if lay == picked else ''} {t:.4f} ms"
+                            for lay, t in times.items()))
+        log(f"[batched] change: Q={q} copy/sum, four slices at their fastest layouts: "
+            f"{best:.4f} ms")
+    uniform = []
+    for s in slices:
+        live = s.nbr != n
+        ids = torch.randint(0, n, s.nbr.shape, device=dev, generator=gen, dtype=torch.int32)
+        uniform.append((torch.where(live, ids, n), s.wgt))
+    for q in (8, 64):
+        v = vals[q]
+        real_ms = cuda_ms(lambda: [ell.ell_combine_batched_cuda(s.nbr, s.wgt, v, "copy", "sum")
+                                   for s in slices], 5, 2, 3)
+        uni_ms = cuda_ms(lambda: [ell.ell_combine_batched_cuda(nb, wg, v, "copy", "sum")
+                                  for nb, wg in uniform], 5, 2, 3)
+        log(f"[batched] change: Q={q} copy/sum, real ids {real_ms:.4f} ms, live ids drawn "
+            f"uniformly {uni_ms:.4f} ms; gather requests {real * q * 4 / real_ms / 1e9:.3f} "
+            f"and {real * q * 4 / uni_ms / 1e9:.3f} TB/s")
 
 
 EMPTY_SOURCE = r"""
@@ -720,21 +821,21 @@ def tiers(dev) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("probe", choices=("tiles", "pack", "wrappers", "combine", "tiers",
-                                      "flash32", "spmm", "bag", "bagvar"))
+                                      "flash32", "spmm", "bag", "bagvar", "batched"))
     ap.add_argument("--root", type=Path, default=ROOT,
                     help="checkout whose src/repro_torch the wrappers and combine probes time")
     ap.add_argument("--parent", type=Path, default=None,
-                    help="combine, flash32, spmm, bag: also time the tree under this "
-                         "checkout, in turns")
+                    help="combine, flash32, spmm, bag, batched: also time the tree under "
+                         "this checkout, in turns")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("port_kernel_probe: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
     log(f"[card] {card_line()}")
-    if args.probe in ("combine", "flash32", "spmm", "bag"):
-        {"combine": combine, "flash32": flash32, "spmm": spmm, "bag": bag_probe}[args.probe](
-            dev, args.root, args.parent)
+    if args.probe in ("combine", "flash32", "spmm", "bag", "batched"):
+        {"combine": combine, "flash32": flash32, "spmm": spmm, "bag": bag_probe,
+         "batched": batched}[args.probe](dev, args.root, args.parent)
         return 0
     import_port(args.root if args.probe == "wrappers" else ROOT)
     if args.probe == "bagvar":

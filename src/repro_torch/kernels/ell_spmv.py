@@ -27,9 +27,12 @@ bit-equal for sums as well as for min and max.
 `ell_combine_batched` is the batched engine's dense pull, where the
 reference builds an (R, W, Q) gather in XLA: for vertex-major vals
 (n+1, Q) each column gets `ell_combine`'s halving tree over W, bit-equal to
-the 1-D kernel at Q = 1. Its kernel is `csrc/ell_combine_batched.cu`
-(lanes over Q, float4 columns where `batched_layout` allows); its plain
-version works in row chunks.
+the 1-D kernel at Q = 1. Its kernel is `csrc/ell_combine_batched.cu`, with
+two routes that `batched_layout` picks by Q: slot lanes for narrow Q (about
+four slots a lane, whole Q-vectors a lane; `ell_combine_slot_lanes_model`)
+and column lanes for wide Q (16-byte column groups, ids staged in shared
+memory; `ell_combine_column_lanes_model`). Its plain version works in row
+chunks.
 
 `ell_spmm`'s kernel is `csrc/ell_spmm.cu`: one warp a row walks the live
 slots only, with f32 accumulation in a fixed order, output in F's dtype
@@ -42,7 +45,7 @@ that the gathered (rows, W, D) block stays small at full graph size.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -325,26 +328,163 @@ def ell_combine_batched_plain(nbr: torch.Tensor, wgt: torch.Tensor, vals: torch.
     return out
 
 
-def batched_layout(q: int, vals_ptr: int, out_ptr: int) -> tuple[bool, int]:
-    """(vector, lanes) of `ell_combine_batched`'s kernel for Q columns: four
-    columns a lane in 16-byte loads where Q % 4 == 0 and vals and out are
-    16-byte aligned, else one; lanes a row the power of two that covers the
-    column groups, at most 32 (Q = 64: 16 lanes, two rows a warp)."""
+#: the widest Q the slot-lanes route takes; wider Q takes column lanes
+SLOT_LANES_MAX_Q = 8
+#: `ell_combine_batched`'s routes (csrc enum order)
+BATCHED_ROUTES = {"slots": 0, "columns": 1}
+
+
+class BatchedLayout(NamedTuple):
+    """How `ell_combine_batched`'s kernel spreads a row over a warp: G
+    `column_lanes` x S `slot_groups` lanes (a power of two <= 32); group s
+    holds the slots s, s + S, ...; `vector`: 16-byte column loads."""
+    route: str
+    vector: bool
+    column_lanes: int
+    slot_groups: int
+
+
+def slot_lanes(width: int) -> int:
+    """Lanes a row of the slot-lanes route for a slice of `width` slots
+    (padded width p): about four slots a lane, p / 4, at least min(p, 2) and
+    at most 32 (p / L <= 8 at p = 256)."""
+    p = 1 << max(width - 1, 0).bit_length()
+    return min(32, max(p // 4, min(p, 2)))
+
+
+def route_layout(route: str, q: int, width: int, vector: bool) -> BatchedLayout:
+    """The layout of one route of `ell_combine_batched`'s kernel for Q
+    columns and a slice of `width` slots (padded width p). Slot lanes:
+    `slot_lanes(width)` lanes a row, each lane gathering whole Q-vectors.
+    Column lanes: G = the power of two that covers the column groups (4
+    columns a lane with `vector`, else 1), at most 32, and S = p / 64 slot
+    groups, at least 1 and at most 32 / G (Q = 64: 16 x 2 on a 256-wide
+    slice, one row a warp; 16 x 1 on narrower ones)."""
+    if route == "slots":
+        return BatchedLayout("slots", vector, 1, slot_lanes(width))
+    p = 1 << max(width - 1, 0).bit_length()
+    groups = -(-q // (4 if vector else 1))
+    lanes = min(32, 1 << max(groups - 1, 0).bit_length())
+    return BatchedLayout("columns", vector, lanes, min(32 // lanes, max(1, p // 64)))
+
+
+def batched_layout(q: int, width: int, vals_ptr: int, out_ptr: int) -> BatchedLayout:
+    """The layout `ell_combine_batched_cuda` launches: slot lanes for
+    Q <= SLOT_LANES_MAX_Q, column lanes beyond (`route_layout`), with
+    16-byte column loads where Q % 4 == 0 and vals and out are 16-byte
+    aligned."""
     vec = q % 4 == 0 and vals_ptr % 16 == 0 and out_ptr % 16 == 0
-    groups = -(-q // (4 if vec else 1))
-    return vec, min(32, 1 << max(groups - 1, 0).bit_length())
+    return route_layout("slots" if q <= SLOT_LANES_MAX_Q else "columns", q, width, vec)
+
+
+def _pad_slots(upd: torch.Tensor, p: int, combine: str) -> torch.Tensor:
+    r, w = upd.shape[:2]
+    if p == w:
+        return upd
+    pad = torch.full((r, p - w, *upd.shape[2:]), _IDENT[combine], dtype=upd.dtype,
+                     device=upd.device)
+    return torch.cat([upd, pad], dim=1)
+
+
+def _pair_groups(a: torch.Tensor, combine: str) -> torch.Tensor:
+    """The shuffles: lane groups k and k + off on axis 1, off = half .. 1,
+    the lower on the left; returns group 0."""
+    pair = _PAIR[combine]
+    off = a.shape[1] // 2
+    while off >= 1:
+        a = pair(a[:, :off], a[:, off:2 * off])
+        off //= 2
+    return a[:, 0]
+
+
+def ell_combine_slot_lanes_model(upd: torch.Tensor, combine: str, lanes: int) -> torch.Tensor:
+    """Row reduce of per-slot values (R, W, ...) in the slot-lanes route's
+    order for L = `lanes` lanes a row (a power of two, p / 8 <= L <=
+    min(p, 32); `slot_lanes(W)` on the card): pad to p with the identity;
+    lane l holds the slots l + L i (i < p / L); it folds them in chunks of
+    min(p / L, 4) (chunk h: i = h + 2 j at p / L = 8), halving over each
+    chunk, then pairs its chunks, then lanes l and l + off for off = L/2 ..
+    1 (the shuffles). The same tree as `halving_tree`, written in the
+    kernel's layout."""
+    w = upd.shape[1]
+    p = 1 << max(w - 1, 0).bit_length()
+    if not (max(p // 8, 1) <= lanes <= min(p, 32) and lanes & (lanes - 1) == 0):
+        raise ValueError(f"{lanes} slot lanes for a padded width of {p}")
+    ns = p // lanes
+    cs = min(ns, 4)
+    pair = _PAIR[combine]
+    a = _pad_slots(upd, p, combine).reshape(upd.shape[0], ns, lanes, *upd.shape[2:])
+    acc = None
+    for h in range(ns // cs):
+        x = a[:, h::ns // cs]                                   # the chunk's slots
+        s = cs // 2
+        while s >= 1:
+            x = pair(x[:, :s], x[:, s:2 * s])
+            s //= 2
+        acc = x[:, 0] if acc is None else pair(acc, x[:, 0])
+    return _pair_groups(acc, combine)
+
+
+def ell_combine_column_lanes_model(upd: torch.Tensor, combine: str,
+                                   slot_groups: int) -> torch.Tensor:
+    """Row reduce of per-slot values (R, W, ...) in the column-lanes route's
+    order for S = `slot_groups` (a power of two <= p): group s walks its
+    slots s + S i in bit-reversed order of i, 8 (or p / S) a chunk, folds
+    each chunk as a halving tree, and merges chunks like a binary counter;
+    then groups s and s + off for off = S/2 .. 1 (the shuffles). The same
+    tree as `halving_tree`, written in the kernel's layout."""
+    w = upd.shape[1]
+    p = 1 << max(w - 1, 0).bit_length()
+    if not (1 <= slot_groups <= p and slot_groups & (slot_groups - 1) == 0):
+        raise ValueError(f"{slot_groups} slot groups for a padded width of {p}")
+    ps = p // slot_groups
+    logps = ps.bit_length() - 1
+    ch = min(ps, 8)
+    up = (ps // ch).bit_length() - 1
+    pair = _PAIR[combine]
+    a = _pad_slots(upd, p, combine)
+    brev = [int(format(t, f"0{logps}b")[::-1], 2) if logps else 0 for t in range(ps)]
+    groups = []
+    for s in range(slot_groups):
+        st = [None] * up
+        for h in range(ps // ch):
+            x = [a[:, s + slot_groups * brev[h * ch + i]] for i in range(ch)]
+            d = 1
+            while d < ch:
+                for i in range(0, ch, 2 * d):
+                    x[i] = pair(x[i], x[i + d])
+                d *= 2
+            y = x[0]
+            for lvl in range(up):
+                if (h >> lvl) & 1:
+                    y = pair(st[lvl], y)
+                else:
+                    st[lvl] = y
+                    break
+        groups.append(y)
+    return _pair_groups(torch.stack(groups, dim=1), combine)
 
 
 _BATCHED_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                      ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                      ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                     ctypes.c_int, ctypes.c_void_p)
+                     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
 
 
 def ell_combine_batched_cuda(nbr: torch.Tensor, wgt: torch.Tensor, vals: torch.Tensor,
                              compute: str, combine: str) -> torch.Tensor:
-    """Launch `csrc/ell_combine_batched.cu`: nbr int32 (R, W), wgt float32
-    (R, W), vals float32 (n+1, Q) -> (R, Q)."""
+    """Launch `csrc/ell_combine_batched.cu` on the route `batched_layout`
+    picks: nbr int32 (R, W), wgt float32 (R, W), vals float32 (n+1, Q) ->
+    (R, Q)."""
+    return _launch_batched(nbr, wgt, vals, compute, combine, None)
+
+
+def _launch_batched(nbr: torch.Tensor, wgt: torch.Tensor, vals: torch.Tensor,
+                    compute: str, combine: str,
+                    layout: Optional[BatchedLayout]) -> torch.Tensor:
+    """The launch behind `ell_combine_batched_cuda`; a `layout` other than
+    `batched_layout`'s is for the card tests and the design probe, which
+    hold both routes to the plain version at the same Q and time them."""
     dev = vals.device
     if compute not in COMPUTE_OPS or combine not in COMBINE_OPS:
         raise ValueError(f"unsupported ops {compute!r}/{combine!r}")
@@ -358,12 +498,13 @@ def ell_combine_batched_cuda(nbr: torch.Tensor, wgt: torch.Tensor, vals: torch.T
     if not 1 <= w <= MAX_WIDTH:
         raise ValueError(f"slice width {w} outside [1, {MAX_WIDTH}]")
     out = torch.empty((r, q), dtype=torch.float32, device=dev)
-    vec, lanes = batched_layout(q, p_vals, out.data_ptr())
+    lay = layout or batched_layout(q, w, p_vals, out.data_ptr())
     fn = _build.entry("ell_combine_batched", "ell_combine_batched_launch",
                       _BATCHED_ARGTYPES)
     with _build.device_guard(dev):
-        err = fn(p_nbr, p_wgt, p_vals, out.data_ptr(), r, w, npad - 1, q, lanes,
-                 COMPUTE_OPS[compute], COMBINE_OPS[combine], int(vec),
+        err = fn(p_nbr, p_wgt, p_vals, out.data_ptr(), r, w, npad - 1, q,
+                 BATCHED_ROUTES[lay.route], lay.column_lanes, lay.slot_groups,
+                 COMPUTE_OPS[compute], COMBINE_OPS[combine], int(lay.vector),
                  _build.stream_of(dev))
     _build.check(err, "ell_combine_batched")
     _build.LAUNCHES["ell_combine_batched"] += 1

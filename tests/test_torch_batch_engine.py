@@ -293,12 +293,25 @@ def test_batched_pull_plain_chunks_rows_and_counts_no_launch(served):
     assert ops.launch_counts()["ell_combine_batched"] == 0
 
 
-@pytest.mark.parametrize("q,ptr,want", [(64, 0, (True, 16)), (8, 0, (True, 2)), (4, 0, (True, 1)),
-                                        (1, 0, (False, 1)), (3, 0, (False, 4)),
-                                        (65, 0, (False, 32)), (64, 4, (False, 32)),
-                                        (256, 0, (True, 32))])
+@pytest.mark.parametrize("q,ptr,want", [
+    (64, 0, ("columns", True, 16, 2)), (8, 0, ("slots", True, 1, 32)),
+    (4, 0, ("slots", True, 1, 32)), (1, 0, ("slots", False, 1, 32)),
+    (3, 0, ("slots", False, 1, 32)), (65, 0, ("columns", False, 32, 1)),
+    (64, 4, ("columns", False, 32, 1)), (256, 0, ("columns", True, 32, 1)),
+    (2, 0, ("slots", False, 1, 32)), (16, 0, ("columns", True, 4, 4)),
+    (17, 0, ("columns", False, 32, 1)), (32, 0, ("columns", True, 8, 4)),
+    (128, 0, ("columns", True, 32, 1)), (130, 0, ("columns", False, 32, 1))])
 def test_batched_layout_is_a_function_of_q_and_alignment(q, ptr, want):
-    assert tell.batched_layout(q, 1024 + ptr, 2048) == want
+    """Slot lanes up to SLOT_LANES_MAX_Q, column lanes beyond (G column
+    lanes x S slot groups); 16-byte columns only where Q % 4 == 0 and vals
+    is aligned. On a 256-wide slice (above) slot lanes take 32 lanes a row
+    and column lanes p / 64 slot groups; on a 32-wide slice 8 slot lanes
+    (four slots a lane) and one slot group; on a 4-wide one 2 and 1."""
+    assert tell.batched_layout(q, 256, 1024 + ptr, 2048) == want
+    route, vec, lanes, groups = want
+    for w, slots in ((32, 8), (4, 2)):
+        narrow = tell.batched_layout(q, w, 1024 + ptr, 2048)
+        assert narrow == (route, vec, lanes, slots if route == "slots" else 1)
 
 
 def test_fusion_and_source_checks(served):

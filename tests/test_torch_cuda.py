@@ -475,29 +475,48 @@ def test_ell_spmm_unaligned_views_take_the_scalar_variants(cuda, w, shift, fshif
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("w", [1, 2, 3, 4, 5, 8, 32, 256])
-@pytest.mark.parametrize("q", [1, 3, 4, 8, 64, 65])
+def _other_route(q: int, w: int, vec: bool):
+    """The route `batched_layout` does not pick at this Q, laid out as
+    `route_layout` lays it out."""
+    other = "slots" if tell.batched_layout(q, w, 0, 0).route == "columns" else "columns"
+    return tell.route_layout(other, q, w, vec)
+
+
+@pytest.mark.parametrize("w", [1, 2, 3, 4, 5, 8, 32, 33, 256])
+@pytest.mark.parametrize("q", [1, 2, 3, 4, 8, 16, 17, 32, 64, 65, 128, 130])
 def test_ell_combine_batched_bit_equal_to_plain(cuda, w, q):
-    """Every op pair, sentinels anywhere in a row, on both variants: float4
-    columns (Q % 4 == 0, aligned) and the scalar one (other Q, and a vals
-    view 4 bytes into its storage)."""
-    rng = np.random.default_rng(w * 100 + q)
+    """Every op pair, sentinels anywhere in a row, on both routes at every
+    Q (the one `batched_layout` picks, through the public wrapper, and the
+    other), each with 16-byte columns where Q % 4 == 0 and vals is aligned
+    and the scalar variant for other Q and for a vals view 4 bytes into its
+    storage; at Q = 1 also bit-equal to the 1-D kernel. Values span six
+    decades with BIG among them; sums also fold values of both signs over
+    two decades without BIG, so that another association shows."""
+    rng = np.random.default_rng(w * 1000 + q)
     r, n = 37, 300
     nb = rng.integers(0, n, (r, w)).astype(np.int32)
     nb[rng.random((r, w)) < 0.3] = n
     nbr = torch.from_numpy(nb).to(cuda)
     wgt = torch.from_numpy(rng.random((r, w)).astype(np.float32)).to(cuda)
-    v = (rng.standard_normal((n + 1) * q + 1) * 10 ** rng.uniform(-3, 3, (n + 1) * q + 1))
-    v = v.astype(np.float32)
-    v[rng.random(v.shape[0]) < 0.2] = tell.BIG
-    flat = torch.from_numpy(v).to(cuda)
+    size = (n + 1) * q + 1
+    v = (rng.standard_normal(size) * 10 ** rng.uniform(-3, 3, size)).astype(np.float32)
+    v[rng.random(size) < 0.2] = tell.BIG
+    wide = torch.from_numpy(v).to(cuda)
+    # BIG swamps a sum's order: sums also fold values without it
+    v = (rng.standard_normal(size) * 10 ** rng.uniform(-1, 1, size)).astype(np.float32)
+    cases = [(comb, wide) for comb in tell.COMBINE_OPS] + [("sum", torch.from_numpy(v).to(cuda))]
     for shift in (0, 1):
-        vals = flat[shift:shift + (n + 1) * q].view(n + 1, q)
+        vec = q % 4 == 0 and shift == 0
+        other = _other_route(q, w, vec)
         for op in tell.COMPUTE_OPS:
-            for comb in tell.COMBINE_OPS:
-                a = tell.ell_combine_batched_cuda(nbr, wgt, vals, op, comb)
+            for comb, flat in cases:
+                vals = flat[shift:shift + (n + 1) * q].view(n + 1, q)
+                assert tell.batched_layout(q, w, vals.data_ptr(), 0).vector is vec
                 b = tell.ell_combine_batched_plain(nbr, wgt, vals, op, comb)
+                a = tell.ell_combine_batched_cuda(nbr, wgt, vals, op, comb)
                 assert torch.equal(_bits(a), _bits(b)), (op, comb, shift)
+                c = tell._launch_batched(nbr, wgt, vals, op, comb, other)
+                assert torch.equal(_bits(c), _bits(b)), (op, comb, shift, other)
                 if q == 1:
                     one = tell.ell_combine_cuda(nbr, wgt, vals[:, 0].contiguous(), op, comb)
                     assert torch.equal(_bits(a[:, 0].contiguous()), _bits(one)), (op, comb)
