@@ -1,20 +1,55 @@
-"""`repro_torch.obs` — the engine-telemetry part of `repro.obs`.
+"""`repro_torch.obs` — unified telemetry for the serving stack, port of
+`repro.obs` (DESIGN.md §12, §14).
 
-Port of the accumulator layout and the device->host chokepoint of
-`repro.obs` (its lines 65-156), which the batched engine needs: the
-`TELE_*` indices of `BatchState.tele`, the helpers that name and read it,
-and `device_fetch`. The host-side registry, spans, flight recorder, health
-monitor and `Observability` come with the scheduler.
+Five pieces, one enable switch:
 
-A telemetry read of device state goes through :func:`device_fetch`, whose
-call counter `TRANSFER_COUNT` is what an overhead guard pins: with
-telemetry off the engine issues none.
+  metrics.py  -- host-side registry: counters, gauges, fixed-bucket
+                 histograms with interpolated p50/p95/p99 summaries.
+  trace.py    -- request-lifecycle spans (submit -> admit -> harvest ->
+                 complete) exported as JSON lines.
+  recorder.py -- flight recorder: a bounded ring of host-side scheduler
+                 events with post-mortem JSONL export; host-only, so it may
+                 be armed without the telemetry switch.
+  health.py   -- streaming SLO health: P² latency quantiles + windowed
+                 deadline-miss burn rate / goodput / queue-depth gauges.
+  (engine)    -- the batched engine's cumulative `BatchState.tele` counters
+                 (the TELE_* layout below) plus a trailing per-shard
+                 scan-volume plane; the scheduler reads one packed vector a
+                 pool step through :func:`device_fetch`.
+
+Everything funnels through :class:`Observability`, which `GraphServer`
+owns. Disabled (the default), every hook is a no-op, the engines carry
+`tele=None`, and no telemetry transfer is issued: every telemetry read of
+device state goes through :func:`device_fetch`, whose call counter
+`TRANSFER_COUNT` is what an overhead guard pins.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
+
+from repro_torch.obs.metrics import (
+    NOOP,
+    Counter,
+    Gauge,
+    Histogram,
+    MetricsRegistry,
+    default_count_buckets,
+    default_latency_buckets,
+)
+from repro_torch.obs.trace import MODE_NAMES, Span, TraceRecorder, iters_from_trace
+from repro_torch.obs import recorder as _recorder
+from repro_torch.obs.health import HealthMonitor, P2Quantile
+from repro_torch.obs.recorder import (
+    EVENT_KINDS,
+    FlightRecorder,
+    arm_global,
+    dump_global,
+    record_global,
+)
 
 # ---------------------------------------------------------------------------
 # engine telemetry accumulator layout (BatchState.tele)
@@ -103,3 +138,92 @@ def device_fetch(x) -> np.ndarray:
     global TRANSFER_COUNT
     TRANSFER_COUNT += 1
     return _host(x)
+
+
+class Observability:
+    """One switch, one registry, one trace recorder — what `GraphServer`
+    threads through the serving stack. `trace` is a path or writable text
+    file; passing one implies enabled.
+
+    `flight` arms the flight recorder: pass a :class:`FlightRecorder`, or
+    True for a fresh default-capacity ring. When unset, the process-global
+    recorder (armed via REPRO_FLIGHT_RECORD / :func:`arm_global`) is
+    adopted if present. The recorder is host-only and deliberately NOT tied
+    to `enabled` — arming it on a telemetry-disabled server stays
+    transfer-free and bit-neutral.
+
+    `health` gates the streaming SLO monitor (defaults to `enabled`);
+    `health_window_s` is its sliding-window width."""
+
+    def __init__(self, enabled: bool = False, trace=None,
+                 keep_spans: int = 1024, name: str = "g0",
+                 flight=None, flight_capacity: int = 4096,
+                 health: Optional[bool] = None,
+                 health_window_s: float = 10.0):
+        self.enabled = bool(enabled) or trace is not None
+        self.registry = MetricsRegistry(enabled=self.enabled)
+        self.tracer = TraceRecorder(enabled=self.enabled, sink=trace,
+                                    keep=keep_spans, name=name)
+        if isinstance(flight, FlightRecorder):
+            self.flight: Optional[FlightRecorder] = flight
+        elif flight:
+            self.flight = FlightRecorder(capacity=flight_capacity)
+        else:
+            self.flight = _recorder.GLOBAL
+        self.health = HealthMonitor(
+            enabled=self.enabled if health is None else bool(health),
+            window_s=health_window_s)
+
+    def close(self) -> None:
+        self.tracer.close()
+
+    def snapshot(self) -> dict:
+        if not self.enabled:
+            return {"enabled": False}
+        out = {
+            "enabled": True,
+            "metrics": self.registry.snapshot(),
+            "spans": self.tracer.stats(),
+            "health": self.health.snapshot(),
+        }
+        if self.flight is not None:
+            out["flight"] = {"events": len(self.flight),
+                             "seq": self.flight.seq,
+                             "capacity": self.flight.capacity}
+        return out
+
+
+__all__ = [
+    "Observability",
+    "MetricsRegistry",
+    "Counter",
+    "Gauge",
+    "Histogram",
+    "NOOP",
+    "TraceRecorder",
+    "Span",
+    "iters_from_trace",
+    "MODE_NAMES",
+    "device_fetch",
+    "tele_dict",
+    "shard_plane",
+    "skew_ratio",
+    "FlightRecorder",
+    "EVENT_KINDS",
+    "arm_global",
+    "record_global",
+    "dump_global",
+    "HealthMonitor",
+    "P2Quantile",
+    "default_latency_buckets",
+    "default_count_buckets",
+    "TELE_LEN",
+    "TELE_FIELDS",
+    "SLO_FIELDS",
+    "TELE_PUSH_EDGES",
+    "TELE_PULL_EDGES",
+    "TELE_COMPACT_HITS",
+    "TELE_COMPACT_DENSE",
+    "TELE_MASKED_DENSE",
+    "TELE_MASKED_ROWS",
+]

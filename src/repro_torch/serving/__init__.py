@@ -4,11 +4,16 @@
                      (vertex-major layout, union-frontier push, the Q-wide
                      `ell_combine_batched` pull, consensus JIT controller,
                      per-query done-masking)
+  scheduler.py    -- slot pools + weighted request queues with
+                     backpressure; continuous batching with mid-flight lane
+                     recycling, cohorts, SLO actions, telemetry
   cache.py        -- graph-version-keyed LRU so hot queries short-circuit
-  scheduler.py    -- so far `default_config`; slot pools and `GraphServer`
-                     come with the serving slice
+  slo.py          -- deadline-aware policy: admission drop, degraded shadow
+                     pools, lane preemption/resume (DESIGN.md §13)
 
-Entry point: `run_batch` for one fixed batch of queries.
+Entry points: `GraphServer` for request streams, `run_batch` for one fixed
+batch, `launch/serve_graph.py` for the CLI driver. Sharded pools
+(`sharded.py`, `placement.py`) are ROADMAP queue 1 item 8.
 """
 
 from repro_torch.serving.batch_engine import (
@@ -22,7 +27,15 @@ from repro_torch.serving.batch_engine import (
     run_state,
 )
 from repro_torch.serving.cache import ResultCache, make_key
-from repro_torch.serving.scheduler import default_config
+from repro_torch.serving.scheduler import (
+    AlgoPool,
+    Completion,
+    GraphServer,
+    QueueFull,
+    Request,
+    default_config,
+)
+from repro_torch.serving.slo import SLOPolicy, degraded_variant
 
 __all__ = [
     "BatchState",
@@ -35,5 +48,12 @@ __all__ = [
     "run_state",
     "ResultCache",
     "make_key",
+    "AlgoPool",
+    "Completion",
+    "GraphServer",
+    "QueueFull",
+    "Request",
     "default_config",
+    "SLOPolicy",
+    "degraded_variant",
 ]

@@ -34,7 +34,8 @@ everything on the device: `run_state` is a host loop that reads one packed
 that host value, and the masked pull's per-slice `lax.cond` is a host
 branch fed by one packed read a pull of every slice's row-buffer overflow
 and the cache flag. `HOST_READS` counts these reads by kind. Telemetry
-reads nothing back: `tele` stays on the device.
+reads nothing back: `tele` stays on the device. A serving pool reads one
+packed (done, it, gmode) tensor a step instead (`pool_flags`).
 """
 
 from __future__ import annotations
@@ -60,8 +61,9 @@ from repro_torch.obs import (
 
 #: device->host reads of the engine's control flow since import: `loop`
 #: (the packed (any live, gmode) of `run_state`), `gmode` (a step called
-#: without the host's gmode), `masked` (one a masked pull)
-HOST_READS = {"loop": 0, "gmode": 0, "masked": 0}
+#: without the host's gmode), `masked` (one a masked pull), `pool` (the
+#: packed (done, it, gmode) a serving pool mirrors, `pool_flags`)
+HOST_READS = {"loop": 0, "gmode": 0, "masked": 0, "pool": 0}
 
 #: gathered elements a chunk of the dense pull's torch expression
 _PULL_CHUNK = 1 << 24
@@ -505,6 +507,16 @@ def _loop_flags(st: BatchState) -> tuple[bool, int]:
                                st.gmode.to(torch.int32)]).tolist()
     HOST_READS["loop"] += 1
     return bool(live), gmode
+
+
+def pool_flags(st: BatchState) -> tuple[list, list, int]:
+    """The one host read a serving pool makes of a state: (done per lane,
+    iterations per lane, gmode), packed into one transfer."""
+    q = st.done.shape[0]
+    flat = torch.cat([st.done.to(torch.int32), st.it.to(torch.int32),
+                      st.gmode.to(torch.int32).reshape(1)]).tolist()
+    HOST_READS["pool"] += 1
+    return [bool(x) for x in flat[:q]], flat[q:2 * q], flat[-1]
 
 
 def run_state(program: ACCProgram, g: Graph, pack: EllPack, cfg: EngineConfig,

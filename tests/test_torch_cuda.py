@@ -573,3 +573,96 @@ def test_run_batch_on_the_card_equals_the_cpu_plain_path(cuda, name, field):
         assert torch.equal(_bits(mc[k]), _bits(mg[k].cpu())), k
     for k in ("per_query_iters", "push_iters", "pull_iters", "switches", "mode_trace"):
         assert torch.equal(sc[k], sg[k].cpu()), k
+
+
+def _serve(dev, telemetry=False):
+    """A mixed bfs/sssp/ppr stream over rmat(12) through `GraphServer`:
+    completions in order and the pool reads it took."""
+    from repro_torch.serving import GraphServer
+
+    g = G.rmat(12, 16, seed=1, device=dev)
+    srv = GraphServer(g, pack_ell(g.inc), {"bfs": A.bfs(0), "sssp": A.sssp(0),
+                                           "ppr": A.ppr(0)},
+                      slots=4, cfg=default_config(g, max_iters=64), queue_cap=12,
+                      cache_capacity=8, telemetry=telemetry)
+    rng = np.random.default_rng(0)
+    reads = TBE.HOST_READS["pool"]
+    for i in range(30):
+        src = int(rng.integers(0, 4096)) if rng.random() > 0.3 else 5
+        while srv.submit(("bfs", "sssp", "ppr")[i % 3], src) is None:
+            srv.pump()
+        if i == 14:                   # the second wave repeats (algo, 5)
+            srv.drain()
+    comps = srv.drain()
+    return comps, TBE.HOST_READS["pool"] - reads, srv
+
+
+def test_graph_server_on_the_card_equals_the_cpu_port(cuda):
+    """The same stream served on the card and on the CPU: the same rids,
+    sources, iterations and cache hits, bfs and sssp results bit-equal,
+    ppr within rtol 1e-5, and the same number of pool reads; no lane is
+    owned after `drain`."""
+    ops.reset_launches()
+    got, reads_g, srv = _serve(cuda)
+    counts = ops.launch_counts()
+    want, reads_c, _ = _serve("cpu")
+    assert counts["ell_combine_batched"] > 0 and counts["segment_reduce"] > 0
+    assert reads_g == reads_c
+    assert all(r is None for p in srv.pools.values() for r in p.lane_rid)
+    assert len(got) == len(want) == 30 and any(c.from_cache for c in got)
+    for a, b in zip(want, got):
+        assert (a.rid, a.algo, a.source, a.iterations, a.from_cache) == (
+            b.rid, b.algo, b.source, b.iterations, b.from_cache)
+        if a.algo == "ppr":
+            np.testing.assert_allclose(b.result, a.result, rtol=1e-5, atol=1e-8)
+        else:
+            assert np.array_equal(b.result.view(np.int32), a.result.view(np.int32)), a.rid
+
+
+def test_graph_server_telemetry_is_bit_neutral_on_the_card(cuda):
+    plain, _, _ = _serve(cuda)
+    tele, _, srv = _serve(cuda, telemetry=True)
+    for a, b in zip(plain, tele):
+        assert a.rid == b.rid and a.iterations == b.iterations
+        assert np.array_equal(a.result.view(np.int32), b.result.view(np.int32)), a.rid
+    assert srv.stats()["pools"]["bfs"]["tele"]["pull_edges_scanned"] >= 0
+
+
+def test_preempt_resume_on_the_card_bit_identical(cuda):
+    """ppr_delta on rmat(12) on the card, four lanes of a pool of five: one
+    lane preempted after three steps and resumed at once in the spare lane
+    (never written with its state, so the saved columns must be written
+    back), bit-equal to the same four run through. (The batch-mates stay the
+    same: a push's segment sums fold in an order set by the union frontier's
+    in-edges, so a lane run beside other lanes need not equal it run
+    alone.)"""
+    from repro_torch.serving import AlgoPool
+
+    g = G.rmat(12, 16, seed=1, device=cuda)
+    pack = pack_ell(g.inc)
+    cfg = default_config(g)
+    sources = (77, 5, 1000, 2)
+    moved = []
+
+    def run(preempt_after):
+        pool = AlgoPool("ppr_delta", A.ppr_delta(0), g, pack, cfg, len(sources) + 1)
+        for lane, src in enumerate(sources):
+            pool.admit(lane, lane, src)
+        out = {}
+        while pool.live():
+            if pool.steps == preempt_after:
+                lane = next(i for i, r in enumerate(pool.lane_rid) if r is not None)
+                rid = pool.lane_rid[lane]
+                saved = pool.preempt(lane)
+                to = next(i for i in pool.free_lanes() if i != lane)
+                pool.admit_resume(to, rid, saved)
+                moved.append((lane, to))
+            pool.step()
+            out.update({r: (res, it) for _l, r, res, it, _x in pool.harvest()})
+        return out
+
+    whole, cut = run(-1), run(3)
+    assert len(moved) == 1 and moved[0][0] != moved[0][1], moved
+    for rid in range(4):
+        assert whole[rid][1] == cut[rid][1]
+        assert np.array_equal(whole[rid][0].view(np.int32), cut[rid][0].view(np.int32)), rid

@@ -43,7 +43,11 @@ def test_package_imports_without_jax():
         "from repro_torch.nn import layers, chunked_attn\n"
         "from repro_torch import obs, serving\n"
         "from repro_torch.core import baselines\n"
-        "from repro_torch.serving import batch_engine, cache, scheduler\n"
+        "from repro_torch.serving import batch_engine, cache, scheduler, slo\n"
+        "from repro_torch.obs import metrics, trace, recorder, health\n"
+        "from repro_torch import streaming\n"
+        "from repro_torch.streaming import incremental\n"
+        "from repro_torch.launch import catalog, serve_graph\n"
         "g = generators.rmat(6, 4, seed=1, device='cpu')\n"
         "p = packing.pack_ell(g.inc)\n"
         "m, st = engine.run(algorithms.bfs(0), g, p,\n"
@@ -51,6 +55,11 @@ def test_package_imports_without_jax():
         "assert int(st['final_count']) == 0\n"
         "mb, sb = serving.run_batch(algorithms.bfs(0), g, p, serving.default_config(g), [0, 3])\n"
         "assert int(sb['final_count'].sum()) == 0\n"
+        "srv = serving.GraphServer(g, p, catalog.make_catalog(), slots=2,\n"
+        "                          telemetry=True)\n"
+        "for a in ('bfs', 'ppr_delta', 'kcore'):\n"
+        "    srv.submit(a, 3)\n"
+        "assert len(srv.drain()) == 3 and srv.stats()['obs']['enabled']\n"
         "assert not any(k == 'jax' or k.startswith(('jax.', 'repro.'))\n"
         "               for k, v in sys.modules.items() if v is not None)\n"
     )
