@@ -147,10 +147,39 @@ Phases (any failure exits non-zero; nothing is caught):
                  caches no degraded result; (d) `launch.serve_graph` at
                  RMAT-16 with telemetry (`--profile`: one warm pump round
                  under torch.profiler);
- 10. report    — the `kernels` JSON line (all nine kernels, flash as two
-                 routes; the batched pull, segment_reduce and frontier_pack
-                 count phase 9's launches too), the card line, then the
-                 last line {"ok": true, "device": {...}}.
+ 10. streaming — phase 4's RMAT-22 graph under edge updates: (a) a
+                 `StreamingGraph` at delta_cap 1024 (device sweeps), ten
+                 batches of 64 inserts (weights 1-64) and 32 deletes of live
+                 base edges drawn as `stream_graph` draws them (seed 0), so
+                 the pending insertions pass the cap and the CSR is rebuilt
+                 and repacked; then a compaction begun, a batch mid-flight
+                 and the compaction finished; after each, bfs and sssp from
+                 two sources through `engine.run(delta=)` bit-equal to runs
+                 on the graph folded from the live edges; apply time split
+                 into edits, sweeps, boundary, materialize and rebuild;
+                 dirty/affected/boundary sizes; then the path's kernels at
+                 its shapes against their plain versions (ell_combine_batched
+                 at Q = 32 and ell_combine on the overlay's slices and a
+                 full delta slice with receivers out of order and repeated,
+                 segment_reduce at D = 32 on the union push with delta lanes,
+                 E = 2n + cap, and on the delta merge, frontier_pack);
+                 (b) `incremental_batch` after an insert+delete batch at
+                 Q = 32 (bfs, sssp, wcc, ppr, ppr_delta) and after a
+                 deletion-only batch at Q = 1 (kcore(16) cascade, mis
+                 reelect), each timed beside `run_batch` from scratch on
+                 the same views, bit-equal (ppr_delta within 2e-3);
+                 (c) `GraphServer(delta_cap=1024)` of bfs, sssp, ppr_delta,
+                 32 slots each, cache 64, queue cap 48: 192 requests drawn
+                 as `stream_graph` draws them (hot 0.25, seed 0, nonzero
+                 degree) with an update batch every 32, each update's
+                 counts and time logged, every completion held against
+                 `run_batch` on the views of its version (bit-equal,
+                 ppr_delta within 1e-3), queries/s, peak memory;
+                 (d) `launch.stream_graph --verify` at RMAT-16;
+ 11. report    — the `kernels` JSON line (all nine kernels, flash as two
+                 routes; ell_combine, the batched pull, segment_reduce and
+                 frontier_pack count phases 9 and 10's launches too), the
+                 card line, then the last line {"ok": true, "device": {...}}.
 
 Kernel times are CUDA-event means over a run of calls. Kernels under 0.1 ms
 (frontier_pack, embedding_bag, the segment_reduce merges) and their library
@@ -1948,6 +1977,461 @@ def serving_phase(dev, A, E, S, BE, obs, ops, ell, g, pack, profile: bool) -> di
     return kernels
 
 
+# ---------------------------------------------------------------------------
+# phase 10: streaming updates on the RMAT-22 graph
+# ---------------------------------------------------------------------------
+
+STREAM_CAP = 1024              # delta_cap: 128 directed inserts a batch fill it in 8
+STREAM_INSERTS = 64            # undirected inserts a batch (weights 1-64)
+STREAM_DELETES = 32            # undirected deletes of live base edges a batch
+STREAM_BATCHES = 10
+STREAM_ALGOS = ("bfs", "sssp", "ppr_delta")
+STREAM_REQUESTS = 192
+STREAM_UPDATE_EVERY = 32
+STREAM_Q = 32
+
+
+def time_methods(pairs, spent: collections.Counter) -> None:
+    """Wrap each (object, method name, label) so that `spent[label]` adds
+    the host seconds (card synchronised) of its calls; a wrapped call inside
+    another of the same `pairs` counts once, in the outer one."""
+    active = []
+
+    def wrap(obj, name, label):
+        fn = getattr(obj, name)
+
+        def timed_fn(*a, **k):
+            outer = not active
+            active.append(label)
+            if outer:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                active.pop()
+                if outer:
+                    torch.cuda.synchronize()
+                    spent[label] += time.perf_counter() - t0
+
+        setattr(obj, name, timed_fn)
+
+    for obj, name, label in pairs:
+        wrap(obj, name, label)
+
+
+def split_apply(sg) -> collections.Counter:
+    """Host seconds inside `sg`'s sweeps, boundary pass, view
+    materialization and rebuild, by wrappers on the instance."""
+    spent = collections.Counter()
+    time_methods([(sg, name, name) for name in ("_sweep", "_boundary_of", "_materialize",
+                                                "compact", "finish_compact",
+                                                "begin_compact")], spent)
+    return spent
+
+
+def apply_split(spent, total: float) -> str:
+    parts = {"sweeps": spent["_sweep"], "boundary": spent["_boundary_of"],
+             "materialize": spent["_materialize"],
+             "rebuild": spent["compact"] + spent["finish_compact"] + spent["begin_compact"]}
+    parts["edits"] = total - sum(parts.values())
+    return ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
+
+
+def fold_graph(sg, dev):
+    """The graph folded from `sg`'s live edges (base minus deleted, then
+    the pending insertions), built from scratch, and its ELL pack."""
+    from repro_torch.graph import pack_ell
+    from repro_torch.graph.csr import from_edges
+
+    src, dst = sg.live_edges_coo()
+    w = sg._base.out.weights[~sg._dead_out]
+    if sg._ins:
+        w = torch.cat([w, torch.tensor([e[2] for e in sg._ins], dtype=torch.float32,
+                                       device=dev)])
+    gf = from_edges(src, dst, sg.n, w, directed=True, dedupe=False, device=dev)
+    return gf, pack_ell(gf.inc)
+
+
+def hold_overlay(A, E, sg, srcs, dev, count) -> float:
+    """bfs and sssp from `srcs` through `engine.run(delta=sg.delta)` on the
+    overlay views (counted) bit-equal to runs on the graph folded from the
+    live edges; returns the host seconds of the checks."""
+    t0 = time.perf_counter()
+    gf, pf = fold_graph(sg, dev)
+    cfg_o = E.EngineConfig(frontier_cap=sg.n, edge_cap=sg.graph.n_edges)
+    cfg_f = E.EngineConfig(frontier_cap=sg.n, edge_cap=gf.n_edges)
+    for name in ("bfs", "sssp"):
+        for s in srcs:
+            m_o, _ = count(lambda: E.run(A.ALL[name](s), sg.graph, sg.pack, cfg_o,
+                                         delta=sg.delta))
+            m_f, _ = E.run(A.ALL[name](s), gf, pf, cfg_f)
+            if not bit_equal(m_o["dist"], m_f["dist"]):
+                bad = int((m_o["dist"] != m_f["dist"]).sum())
+                raise AssertionError(f"overlay {name}({s}) differs from the folded graph's "
+                                     f"in {bad} vertices (version {sg.version})")
+    del gf, pf
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def hold_streaming_kernels(dev, ell, sr, fp, sg, nz) -> None:
+    """The streaming path's kernels at its shapes against their plain
+    versions (these launches are not counted): `ell_combine_batched` at
+    Q = 32 and `ell_combine` on the overlay's neutralized slices and on a
+    full delta slice of `STREAM_CAP` rows whose receivers are out of order
+    and repeat (bit-equal); `segment_reduce` at D = 32 on the union push
+    with the delta's COO lanes (E = 2n + cap) and on the delta slice's
+    merge after its stable sort, by `check_segment`; `frontier_pack` at the
+    union's cap."""
+    from repro_torch.graph.packing import delta_ell_slice
+
+    n, q = sg.n, STREAM_Q
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(23)
+    rng = np.random.default_rng(23)
+    t0 = time.perf_counter()
+    recv = rng.permutation(np.repeat(rng.choice(nz, STREAM_CAP // 4, replace=False), 4))
+    send = rng.choice(nz, STREAM_CAP)
+    dsl = delta_ell_slice(recv, send, rng.integers(1, 65, STREAM_CAP).astype(np.float32),
+                          n, STREAM_CAP, device=dev)
+    if dsl.rows_ascending or bool((dsl.row_id[1:] >= dsl.row_id[:-1]).all()):
+        raise AssertionError("the delta slice's receivers should be out of order")
+    slices = list(sg.pack.slices[:-1]) + [dsl]
+    dead = sum(int((s.nbr[:, :] == n).sum()) for s in slices[:-1])
+    vals = torch.rand(n + 1, q, device=dev, generator=gen) * 64
+    v1 = vals[:, 0].contiguous()
+    for s in slices:
+        for op, comb in (("hop", "min"), ("add_w", "min"), ("copy", "sum")):
+            if not bit_equal(ell.ell_combine_batched_cuda(s.nbr, s.wgt, vals, op, comb),
+                             ell.ell_combine_batched_plain(s.nbr, s.wgt, vals, op, comb)):
+                raise AssertionError(f"ell_combine_batched {op}/{comb} Q={q} differs on the "
+                                     f"streaming {tuple(s.nbr.shape)} slice")
+            if not bit_equal(ell.ell_combine_cuda(s.nbr, s.wgt, v1, op, comb),
+                             ell.ell_combine_plain(s.nbr, s.wgt, v1, op, comb)):
+                raise AssertionError(f"ell_combine {op}/{comb} differs on the streaming "
+                                     f"{tuple(s.nbr.shape)} slice")
+    del vals, v1
+    e_push = 2 * n
+    pick = torch.randint(0, sg.graph.n_edges, (e_push,), device=dev, generator=gen)
+    lanes = torch.full((STREAM_CAP,), n, dtype=torch.int32, device=dev)
+    lanes[:STREAM_CAP // 2] = torch.from_numpy(recv[:STREAM_CAP // 2].astype(np.int32)).to(dev)
+    ids = torch.sort(torch.cat([sg.graph.out.col_idx[pick], lanes])).values
+    sv = torch.rand(ids.shape[0], q, device=dev, generator=gen)
+    check_segment(sr, sv, ids, n, f"streaming push E={ids.shape[0]} D={q}")
+    del pick, ids, sv
+    mids, order = torch.sort(dsl.row_id, stable=True)
+    part = torch.rand(dsl.rows, q, device=dev, generator=gen)[order].contiguous()
+    check_segment(sr, part, mids, n + 1, f"delta merge E={dsl.rows} D={q}")
+    mask = torch.rand(n, device=dev, generator=gen) < 0.05
+    if not all(bit_equal(x, y) for x, y in zip(fp.frontier_pack_cuda(mask, n),
+                                                fp.frontier_pack_plain(mask, n))):
+        raise AssertionError(f"frontier_pack differs at the streaming shape n={n} cap={n}")
+    log(f"[10 streaming] kernels at the streaming shapes, against their plain versions: "
+        f"ell_combine_batched Q={q} and ell_combine on {len(slices) - 1} overlay slices "
+        f"({dead} neutralized or padding slots) and a full delta slice of {dsl.rows} rows "
+        f"(receivers out of order, each 4 times), hop/min, add_w/min, copy/sum bit-equal; "
+        f"segment_reduce D={q} at the union push with delta lanes (E={e_push + STREAM_CAP}) "
+        f"and the delta merge (E={dsl.rows}), sum/min/max bit-equal to "
+        f"segment_reduce_ordered; frontier_pack n={n} bit-equal "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+
+def streaming_phase(dev, A, E, S, ops, ell, sr, fp, g, nz) -> dict:
+    """Phase 10: streaming updates on phase 4's RMAT-22 graph. (a) a
+    `StreamingGraph` at delta_cap 1024 (device sweeps): ten update batches
+    of 64 inserts and 32 deletes drawn as `stream_graph` draws them (seed
+    0), so the pending insertions pass the cap and rebuild; then a
+    compaction begun, a batch mid-flight and the compaction finished; after
+    each, bfs and sssp from two sources through `engine.run(delta=)` held
+    bit-equal to runs on the graph folded from the live edges. Then the
+    path's kernels at its shapes (`hold_streaming_kernels`). (b)
+    `incremental_batch` after an insert+delete batch at Q = 32 (bfs, sssp,
+    wcc, ppr, ppr_delta) and after a deletion-only batch at Q = 1 (kcore(16),
+    mis), each against `run_batch` from scratch on the same views, timed
+    beside it. (c) a `GraphServer(delta_cap=1024)` of bfs, sssp and
+    ppr_delta, 32 slots each, serving 192 requests with an update batch
+    every 32, every completion held against `run_batch` on the views of the
+    version it completed under. (d) `stream_graph --verify` at RMAT-16.
+    Returns the counted launches of (a)-(c)."""
+    from repro_torch.launch import stream_graph
+    from repro_torch.serving import GraphServer
+    from repro_torch.streaming import StreamingGraph, incremental_batch
+    from repro_torch import streaming as STREAM
+    from repro_torch.serving import scheduler as SCHED
+    from repro_torch.streaming import incremental as INC
+
+    n = g.n_nodes
+    counted = collections.Counter()
+
+    def count(fn):
+        ops.reset_launches()
+        out = fn()
+        counted.update(ops.launch_counts())
+        return out
+
+    # -- (a) the overlay ----------------------------------------------------------
+    (sg, t_build) = timed(lambda: StreamingGraph(g, delta_cap=STREAM_CAP))
+    log(f"[10 streaming] (a) StreamingGraph(delta_cap={STREAM_CAP}, sweep=auto) over RMAT-22 "
+        f"(n={n}, m={g.n_edges}): {t_build:.3f} s (pack with edge->slot map, host copies "
+        f"of row_ptr/col_idx)")
+    spent = split_apply(sg)
+    rng = np.random.default_rng(0)
+    srcs = [int(x) for x in np.random.default_rng(3).choice(nz, 2)]
+    t_hold, rebuilt = 0.0, []
+    for b in range(1, STREAM_BATCHES + 1):
+        ins, dels = stream_graph.random_update_batch(rng, sg, STREAM_INSERTS, STREAM_DELETES)
+        pending = len(sg._ins)
+        spent.clear()
+        rep, t = timed(lambda: count(lambda: sg.apply(ins, dels)))
+        if rep.rebuild:
+            rebuilt.append(b)
+        if rep.rebuild != (pending + rep.n_inserted > STREAM_CAP):
+            raise AssertionError(f"batch {b}: rebuild {rep.rebuild} with {pending} pending "
+                                 f"and {rep.n_inserted} inserted at cap {STREAM_CAP}")
+        log(f"[10 streaming] (a) batch {b}: +{rep.n_inserted}/-{rep.n_deleted} "
+            f"(ignored {rep.n_ignored}), pending {len(sg._ins)}, rebuild={rep.rebuild}; "
+            f"apply {t:.3f} s ({apply_split(spent, t)}); dirty {int(rep.dirty_src.sum())}, "
+            f"affected {int(rep.affected_del.sum())}, boundary {rep.boundary.size}")
+        t_hold += hold_overlay(A, E, sg, srcs, dev, count)
+    if not rebuilt:
+        raise AssertionError("no batch overflowed the delta buffer")
+    spent.clear()
+    _, t_begin = timed(sg.begin_compact)
+    ins, dels = stream_graph.random_update_batch(rng, sg, STREAM_INSERTS, STREAM_DELETES)
+    mid, t_mid = timed(lambda: count(lambda: sg.apply(ins, dels)))
+    t_hold += hold_overlay(A, E, sg, srcs, dev, count)
+    merged, t_fin = timed(sg.finish_compact)
+    if not merged.rebuild or merged.n_inserted != mid.n_inserted or sg.rebuilds != len(rebuilt) + 1:
+        raise AssertionError(f"compaction: merged {merged.n_inserted} inserts of "
+                             f"{mid.n_inserted}, {sg.rebuilds} rebuilds")
+    t_hold += hold_overlay(A, E, sg, srcs, dev, count)
+    log(f"[10 streaming] (a) rebuild on batch {rebuilt} (pending insertions past the cap); "
+        f"compaction: begin {t_begin:.3f} s, a batch mid-flight {t_mid:.3f} s "
+        f"(+{mid.n_inserted}/-{mid.n_deleted}), finish {t_fin:.3f} s (merged report "
+        f"+{merged.n_inserted}/-{merged.n_deleted}); bfs and sssp from {srcs} on the overlay "
+        f"bit-equal to the folded graph after every batch, the mid-flight one and the "
+        f"finish ({t_hold:.1f} s of checks); stats {sg.stats()}")
+
+    # -- the kernels at the streaming shapes -----------------------------------------
+    hold_streaming_kernels(dev, ell, sr, fp, sg, nz)
+    torch.cuda.empty_cache()
+
+    # -- (b) incremental against full recompute ------------------------------------
+    cfg = S.default_config(sg.graph)
+    src32 = [int(x) for x in np.random.default_rng(17).choice(nz, STREAM_Q)]
+    progs = {"bfs": A.bfs(0), "sssp": A.sssp(0), "wcc": A.wcc(), "ppr": A.ppr(0),
+             "ppr_delta": A.ppr_delta(0)}
+    prev = {k: S.run_batch(p, sg.graph, sg.pack, cfg, src32, delta=sg.delta)[0]
+            for k, p in progs.items()}
+    ins, dels = stream_graph.random_update_batch(rng, sg, STREAM_INSERTS, STREAM_DELETES)
+    rep, t = timed(lambda: count(lambda: sg.apply(ins, dels)))
+    log(f"[10 streaming] (b) insert+delete batch +{rep.n_inserted}/-{rep.n_deleted}: apply "
+        f"{t:.3f} s; dirty sources {int(rep.dirty_src.sum())} of {n}, affected "
+        f"{int(rep.affected_del.sum())}, boundary {rep.boundary.size}")
+    ratios = {}
+
+    def refresh(name, prog, sources, prev_m, report, exact_fields, mode):
+        count(lambda: incremental_batch(prog, sg, cfg, sources, prev_m, report))   # warm
+        (m_i, info), t_i = timed(lambda: count(
+            lambda: incremental_batch(prog, sg, cfg, sources, prev_m, report)))
+        S.run_batch(prog, sg.graph, sg.pack, cfg, sources, delta=sg.delta)        # warm
+        (m_f, st_f), t_f = timed(lambda: S.run_batch(prog, sg.graph, sg.pack, cfg, sources,
+                                                     delta=sg.delta))
+        if info["mode"] != mode:
+            raise AssertionError(f"{name}: regime {info['mode']}, expected {mode}")
+        if mode == "selective-rerun":
+            # re-run (dirty) lanes bit-equal to full recompute; clean lanes keep
+            # their previous result (a lane's sums fold in an order its
+            # batch-mates' frontiers set, so only the re-run lanes share bits
+            # with a batch of other lanes)
+            dirty = torch.from_numpy(report.dirty_src[np.asarray(sources)]).to(dev)
+            for k in exact_fields:
+                want = torch.where(dirty[None, :], m_f[k], prev_m[k])
+                if not bit_equal(m_i[k], want):
+                    raise AssertionError(f"selective {name} field {k} differs")
+        else:
+            for k in (exact_fields or ()):
+                if not bit_equal(m_i[k], m_f[k]):
+                    raise AssertionError(f"incremental {name} field {k} differs from full "
+                                         "recompute")
+        if not exact_fields:
+            d = float((m_i["rank"] - m_f["rank"]).abs().max())
+            if not d < 2e-3:
+                raise AssertionError(f"incremental {name} rank {d:.3g} from full recompute")
+            how = f"rank within {d:.3g} of it (limit 2e-3)"
+        else:
+            how = "bit-equal"
+        ratios[name] = t_f / t_i
+        log(f"[10 streaming] (b) {name} Q={len(sources)} {info['mode']}: incremental "
+            f"{t_i:.3f} s ({info['iterations']} iterations), full recompute {t_f:.3f} s "
+            f"({int(st_f['iterations'])} iterations): {t_f / t_i:.2f}x; {how}")
+        return m_i
+
+    for name in ("bfs", "sssp", "wcc"):
+        refresh(name, progs[name], src32, prev[name], rep, list(prev[name]),
+                "monotone-incremental")
+    refresh("ppr", progs["ppr"], src32, prev["ppr"], rep, list(prev["ppr"]),
+            "selective-rerun")
+    refresh("ppr_delta", progs["ppr_delta"], src32, prev["ppr_delta"], rep, None,
+            "residual-resume")
+    del prev
+    torch.cuda.empty_cache()
+    one = src32[:1]
+    progs1 = {"kcore": A.kcore(16), "mis": A.mis()}
+    prev1 = {k: S.run_batch(p, sg.graph, sg.pack, cfg, one, delta=sg.delta)[0]
+             for k, p in progs1.items()}
+    _, dels = stream_graph.random_update_batch(rng, sg, 0, STREAM_DELETES)
+    rep, t = timed(lambda: count(lambda: sg.apply(deletes=dels)))
+    log(f"[10 streaming] (b) deletion-only batch -{rep.n_deleted}: apply {t:.3f} s; "
+        f"affected {int(rep.affected_del.sum())}, boundary {rep.boundary.size}")
+    refresh("kcore(16)", progs1["kcore"], one, prev1["kcore"], rep, list(prev1["kcore"]),
+            "cascade-resume")
+    refresh("mis", progs1["mis"], one, prev1["mis"], rep, list(prev1["mis"]),
+            "reelect-resume")
+    log(f"[10 streaming] (b) full recompute / incremental: "
+        + ", ".join(f"{k} {v:.2f}x" for k, v in ratios.items()))
+    del prev1, sg, progs, progs1
+    torch.cuda.empty_cache()
+
+    # -- (c) the streaming server ------------------------------------------------------
+    cat_progs = {"bfs": A.bfs(0), "sssp": A.sssp(0), "ppr_delta": A.ppr_delta(0)}
+    cfg = S.default_config(g)
+    torch.cuda.reset_peak_memory_stats()
+    srv = GraphServer(g, None, cat_progs, slots=SERVE_SLOTS, cfg=cfg,
+                      queue_cap=SERVE_QUEUE_CAP, cache_capacity=SERVE_CACHE,
+                      delta_cap=STREAM_CAP)
+    snapshots = {0: (srv.sg.graph, srv.sg.pack, srv.sg.delta)}
+    checked = {"exact": 0, "residual": 0, "worst": 0.0}
+
+    def verify(versions):
+        """Hold every completion of `versions` against `run_batch` on that
+        version's views, grouped by (version, algo); drop the views."""
+        for ver in versions:
+            gv, pv, dv = snapshots.pop(ver)
+            for algo, prog in cat_progs.items():
+                group = [c for c in srv.completions if c.graph_version == ver and c.algo == algo]
+                for lo in range(0, len(group), STREAM_Q):
+                    part = group[lo:lo + STREAM_Q]
+                    ref, _ = S.run_batch(prog, gv, pv, cfg, [c.source for c in part], delta=dv)
+                    want = ref[prog.param("result", prog.primary)][:-1].T.cpu().numpy()
+                    for c, w in zip(part, want):
+                        if algo == "ppr_delta":
+                            d = float(np.abs(c.result - w).max())
+                            checked["worst"] = max(checked["worst"], d)
+                            if not d < 1e-3:
+                                raise AssertionError(f"ppr_delta rid {c.rid} v{ver}: {d:.3g} "
+                                                     "from run_batch")
+                            checked["residual"] += 1
+                        else:
+                            if not result_bits_equal(c.result, w):
+                                raise AssertionError(f"{algo} rid {c.rid} (source {c.source}) "
+                                                     f"v{ver} differs from run_batch")
+                            checked["exact"] += 1
+            del gv, pv, dv
+        torch.cuda.empty_cache()
+
+    # apply_updates split by wrappers on the server, its graph and pools;
+    # residual_correct (inside the refresh and the resume) on its own
+    upd = collections.Counter()
+    time_methods([(srv, "_harvest_pool", "harvest"), (srv.sg, "apply", "graph apply"),
+                  (srv, "_refresh_cached", "cache refresh")]
+                 + [(p, m, lbl) for p in srv.pools.values()
+                    for m, lbl in (("set_graph", "set_graph"),
+                                   ("resume_residual", "in-flight resume"),
+                                   ("readmit", "in-flight restart"))], upd)
+    # inside the refresh and the resume, each on its own
+    rc_spent = collections.Counter()
+    inner = [(INC, "residual_correct"), (STREAM, "incremental_batch"),
+             (SCHED, "_lane_rows")]
+    originals = [(obj, name, getattr(obj, name)) for obj, name in inner]
+    for obj, name in inner:
+        time_methods([(obj, name, name)], rc_spent)
+    rng = np.random.default_rng(0)
+    hot = rng.choice(nz, size=max(1, STREAM_REQUESTS // 8))
+    t_verify, t_updates, pressed, log_upd = 0.0, 0.0, 0, []
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(STREAM_REQUESTS):
+        algo = STREAM_ALGOS[i % len(STREAM_ALGOS)]
+        src = int(rng.choice(hot)) if rng.random() < 0.25 else int(rng.choice(nz))
+        while srv.submit(algo, src) is None:
+            pressed += 1
+            srv.pump()
+        srv.pump()
+        if (i + 1) % STREAM_UPDATE_EVERY == 0:
+            ins, dels = stream_graph.random_update_batch(rng, srv.sg, STREAM_INSERTS,
+                                                         STREAM_DELETES)
+            upd.clear()
+            rc_spent.clear()
+            st, t_u = timed(lambda: srv.apply_updates(ins, dels, refresh="incremental"))
+            t_updates += t_u
+            snapshots[st["version"]] = (srv.sg.graph, srv.sg.pack, srv.sg.delta)
+            split = dict(upd, rest=t_u - sum(upd.values()))
+            split.update({f"in them: {k}": v for k, v in rc_spent.items()})
+            log_upd.append((st, t_u, split))
+            counted.update(ops.launch_counts())            # bank the stream's launches
+            (_, t_v) = timed(lambda: verify([v for v in snapshots if v < st["version"]]))
+            t_verify += t_v
+            ops.reset_launches()
+    comps = srv.drain()
+    torch.cuda.synchronize()
+    t_stream = time.perf_counter() - t0 - t_verify
+    counted.update(ops.launch_counts())
+    for obj, name, fn in originals:
+        setattr(obj, name, fn)
+    peak = torch.cuda.max_memory_allocated()
+    _, t_v = timed(lambda: verify(list(snapshots)))
+    t_verify += t_v
+    if len(comps) != STREAM_REQUESTS or any(c.result is None for c in comps):
+        raise AssertionError(f"{len(comps)} completions of {STREAM_REQUESTS} requests")
+    if checked["exact"] + checked["residual"] != len(comps):
+        raise AssertionError(f"{checked} checks for {len(comps)} completions")
+    stats = srv.stats()
+    for st, t_u, split in log_upd:
+        log(f"[10 streaming] (c) update v{st['version']}: +{st['inserted']}/-{st['deleted']}, "
+            f"rebuild={st['rebuild']}; cache retained {st['cache_retained']} refreshed "
+            f"{st['cache_refreshed']} dropped {st['cache_dropped']}; in flight re-enqueued "
+            f"{st['reenqueued_inflight']} resumed {st['resumed_inflight']}; apply_updates "
+            f"{t_u:.3f} s (" + ", ".join(f"{k} {v:.3f}" for k, v in split.items()) + ")")
+    hits = sum(c.from_cache for c in comps)
+    log(f"[10 streaming] (c) {len(comps)} requests in {t_stream:.3f} s (verification "
+        f"excluded; {t_updates:.3f} s of it in {len(log_upd)} apply_updates): "
+        f"{len(comps) / t_stream:.1f} queries/s, {hits} cache hits, {pressed} backpressure "
+        f"events; every completion checked against run_batch on its version's views: "
+        f"{checked['exact']} bfs/sssp bit-equal, {checked['residual']} ppr_delta within "
+        f"{checked['worst']:.3g} (limit 1e-3) ({t_verify:.1f} s of checks); peak device "
+        f"memory {peak / 2**30:.2f} GiB; stats graph.streaming {stats['graph']['streaming']}")
+    for name in STREAM_ALGOS:
+        p = stats["pools"][name]
+        log(f"[10 streaming] (c)   pool {name}: {p['engine_queries']} engine queries, "
+            f"{p['steps']} batched steps x {p['slots']} slots")
+    del srv, comps, snapshots
+    torch.cuda.empty_cache()
+
+    # -- (d) the CLI --------------------------------------------------------------------
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = stream_graph.main(["--graph", "rmat", "--scale", "16", "--verify"])
+    for line in out.getvalue().splitlines():
+        log(f"[10 streaming] (d) {line}")
+    if rc != 0 or "verify: 24/24 OK" not in out.getvalue():
+        raise AssertionError(f"stream_graph returned {rc}")
+    log(f"[10 streaming] (d) stream_graph --verify at RMAT-16 on the card: "
+        f"{time.perf_counter() - t0:.1f} s")
+    kernels = {k: counted[k] for k in ("ell_combine", "ell_combine_batched",
+                                       "segment_reduce", "frontier_pack")}
+    if not all(kernels.values()):
+        raise AssertionError(f"a kernel of the streaming path was not launched: {kernels}")
+    log(f"[10 streaming] launches in (a)-(c): {kernels}")
+    return kernels
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=22, help="RMAT scale of the main path")
@@ -2283,10 +2767,20 @@ def main() -> int:
     for name, k in served.items():
         launches[name] += k
     log(f"[9 serving] phase {time.perf_counter() - t0:.1f} s")
-    del g, pack
+    del pack
     torch.cuda.empty_cache()
 
-    # -- phase 10: report ------------------------------------------------------
+    # -- phase 10: streaming updates on the RMAT-22 graph -------------------------
+    t0 = time.perf_counter()
+    nz = np.flatnonzero(g.out.degrees().cpu().numpy() > 0)
+    streamed = streaming_phase(dev, A, E, S, ops, ell, sr, fp, g, nz)
+    for name, k in streamed.items():
+        launches[name] += k
+    log(f"[10 streaming] phase {time.perf_counter() - t0:.1f} s")
+    del g
+    torch.cuda.empty_cache()
+
+    # -- phase 11: report ------------------------------------------------------
     kernels = []
     for name in _build.KERNELS:
         if launches[name] <= 0:
@@ -2294,7 +2788,7 @@ def main() -> int:
         kernels.append(dict(name=name, route="cuda",
                             source=f"src/repro_torch/csrc/{_build.KERNELS[name]}.cu",
                             launches=launches[name], passed=True, **report[name]))
-    log(f"[10 report] total {time.perf_counter() - t_start:.1f} s, against the 1200 s "
+    log(f"[11 report] total {time.perf_counter() - t_start:.1f} s, against the 1200 s "
         "limit of the chip call")
     log(json.dumps({"kernels": kernels}))
     log(card_line())

@@ -206,7 +206,7 @@ def _pull_step(program: ACCProgram, pack: EllPack, cfg: EngineConfig,
             # tree reduce: association order pinned (bit-equal to the kernel)
             partial = comb.reduce_axis_tree(upd, axis=1)           # (R,)
         seg = comb.pair(seg, comb.segment(partial, s.row_id, n + 1,
-                                          sorted_ids=True))
+                                          sorted_ids=s.rows_ascending))
 
     m_new = program.run_apply(st.m, seg, st.it)
     changed_v = program.active(m_new, st.m, st.it).clone()

@@ -138,6 +138,13 @@ def _csr_arrays(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor, n: int
                w.to(torch.float32), src.to(torch.int32))
 
 
+def _edge_array(x, dtype: torch.dtype, dev: torch.device) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x.to(device=dev, dtype=dtype)
+    np_dtype = np.int64 if dtype == torch.int64 else np.float32
+    return torch.as_tensor(np.asarray(x, dtype=np_dtype)).to(dev)
+
+
 def from_edges(
     src,
     dst,
@@ -147,18 +154,19 @@ def from_edges(
     dedupe: bool = True,
     device="cuda",
 ) -> Graph:
-    """Build a :class:`Graph` from host edge arrays.
+    """Build a :class:`Graph` from edge arrays: host arrays, or tensors
+    (which may already lie on `device`, as a streaming rebuild's do).
 
     Drops self loops; for undirected graphs stores both directions (in/out
     CSR then share tensors); with `dedupe` keeps the minimum-weight edge of
     each (u, v) pair. Arrays are equal to `repro.graph.csr.from_edges`'.
     """
     dev = resolve_device(device)
-    src = torch.as_tensor(np.asarray(src, dtype=np.int64)).to(dev)
-    dst = torch.as_tensor(np.asarray(dst, dtype=np.int64)).to(dev)
+    src = _edge_array(src, torch.int64, dev)
+    dst = _edge_array(dst, torch.int64, dev)
     if weights is None:
-        weights = np.ones(src.shape[0], dtype=np.float32)
-    w = torch.as_tensor(np.asarray(weights, dtype=np.float32)).to(dev)
+        weights = torch.ones(src.shape[0], dtype=torch.float32, device=dev)
+    w = _edge_array(weights, torch.float32, dev)
 
     keep = src != dst
     src, dst, w = src[keep], dst[keep], w[keep]

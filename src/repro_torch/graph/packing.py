@@ -34,11 +34,18 @@ DEFAULT_SPLIT: int = 256
 class EllSlice:
     """One degree bucket packed as a (rows, width) rectangle; nbr padded with
     the sentinel n, wgt with 0; `row_id` maps each (virtual) row to its
-    vertex (sentinel rows map to the scratch slot n)."""
+    vertex (sentinel rows map to the scratch slot n).
+
+    `rows_ascending` says that `row_id` is ascending by construction, as
+    the degree buckets of `pack_ell` are: the pull merges then hand the ids
+    straight to `segment_reduce`, whose CUDA kernel needs them ascending.
+    The streaming delta slice lists receivers in insertion order, so it
+    keeps the default and its merge sorts first."""
 
     nbr: torch.Tensor     # (R, W) int32
     wgt: torch.Tensor     # (R, W) float32
-    row_id: torch.Tensor  # (R,) int32, sorted
+    row_id: torch.Tensor  # (R,) int32
+    rows_ascending: bool = False
 
     @property
     def rows(self) -> int:
@@ -70,12 +77,12 @@ def pack_ell(csr: CSR, buckets: Sequence[int] = DEFAULT_BUCKETS,
 
 def pack_ell_with_positions(csr: CSR, buckets: Sequence[int] = DEFAULT_BUCKETS,
                             split: int = DEFAULT_SPLIT, min_rows: int = 8
-                            ) -> tuple[EllPack, np.ndarray]:
-    """`pack_ell` plus the (m, 3) int64 host map: CSR edge e landed in
-    `pack.slices[pos[e, 0]].nbr[pos[e, 1], pos[e, 2]]`."""
+                            ) -> tuple[EllPack, torch.Tensor]:
+    """`pack_ell` plus the (m, 3) int64 map on the CSR's device: CSR edge e
+    landed in `pack.slices[pos[e, 0]].nbr[pos[e, 1], pos[e, 2]]` (the
+    reference returns the same map as a host array)."""
     pos = torch.full((csr.n_edges, 3), -1, dtype=torch.int64, device=csr.device)
-    pack = _pack(csr, buckets, split, min_rows, pos=pos)
-    return pack, pos.cpu().numpy()
+    return _pack(csr, buckets, split, min_rows, pos=pos), pos
 
 
 def _pack(csr: CSR, buckets, split, min_rows, pos: Optional[torch.Tensor]
@@ -126,13 +133,15 @@ def _pack_rows(row_ids, start, end, csr: CSR, width, min_rows, pos, slice_idx
             pos[flat_src, 0] = slice_idx
             pos[flat_src, 1] = rr
             pos[flat_src, 2] = cc
-    return EllSlice(nbr, wgt, rid)
+    return EllSlice(nbr, wgt, rid, rows_ascending=True)
 
 
 def delta_ell_slice(dst, src, w, n: int, cap: int, min_rows: int = 8,
                     device="cuda") -> EllSlice:
     """Pack inserted in-edges as one static-shape width-1 ELL slice: one row
-    per inserted edge (`row_id = dst`, `nbr = src`), padded to `cap` rows."""
+    per inserted edge (`row_id = dst`, `nbr = src`), padded to `cap` rows.
+    Rows keep insertion order, as the reference's do, so `row_id` is not
+    ascending (`rows_ascending` False)."""
     rows = max(min_rows, _round_up(max(cap, 1), min_rows))
     k = int(np.asarray(dst).shape[0])
     if k > cap:

@@ -53,10 +53,12 @@ def graph_from_numpy(out: Mapping, inc: Optional[Mapping] = None,
 
 def pack_from_numpy(slices: Sequence[Mapping], n_nodes: int,
                     device="cuda") -> EllPack:
-    """An `EllPack` from per-slice numpy fields (`nbr`, `wgt`, `row_id`)."""
+    """An `EllPack` from per-slice numpy fields (`nbr`, `wgt`, `row_id`);
+    a slice is marked `rows_ascending` where its host `row_id` is."""
     dev = resolve_device(device)
     return EllPack(
-        slices=tuple(EllSlice(*(_t(k, s[k], dev) for k in SLICE_FIELDS))
+        slices=tuple(EllSlice(*(_t(k, s[k], dev) for k in SLICE_FIELDS),
+                              rows_ascending=bool(np.all(np.diff(s["row_id"]) >= 0)))
                      for s in slices),
         n_nodes=int(n_nodes))
 

@@ -308,7 +308,8 @@ def _pull_step(program: ACCProgram, pack: EllPack, cfg: EngineConfig, st: BatchS
                 tele = _tele_add(tele, TELE_MASKED_ROWS, rows)
             tele = _tele_add(tele, TELE_PULL_EDGES, rows * s.width)
         pseg_new.append(partial)
-        seg = comb.pair(seg, comb.segment(partial, s.row_id, n + 1, sorted_ids=True))
+        seg = comb.pair(seg, comb.segment(partial, s.row_id, n + 1,
+                                          sorted_ids=s.rows_ascending))
 
     m_new, nxt, count, fe, ovf, hot = _apply_and_refilter(program, cfg, csr_for_deg, st, seg)
     return _advance(st, m_new, nxt, count, fe, ovf, was_mode=PULL, cfg=cfg,

@@ -58,9 +58,17 @@ numpy) in the result cache and resuming the fixpoint later via
 Consensus cohorts (`cohorts={'algo': k}`): an algorithm's slot budget is
 split across k leaf pools, each with its own push/pull consensus vote.
 
-Not ported yet: streaming graphs (`delta_cap > 0`, `apply_updates`; ROADMAP
-queue 1 item 6) and sharded pools (`mesh`/`placements`; item 8) raise
-`NotImplementedError`.
+Streaming graphs: constructed with `delta_cap > 0` the server owns a
+`repro_torch.streaming.StreamingGraph`; `apply_updates` absorbs an
+edge-update batch, swaps the overlaid views into every pool (each pool
+builds its step on the new views), selectively invalidates the LRU by the
+reverse-reachability test (refreshing dirty entries incrementally where the
+program's contract allows), resumes in-flight residual-push lanes from
+corrected residuals and restarts the other dirtied in-flight lanes
+(DESIGN.md §8).
+
+Not ported yet: sharded pools (`mesh`/`placements`; ROADMAP queue 1 item 8)
+raise `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -77,7 +85,7 @@ import torch
 
 from repro_torch.core.acc import ACCProgram
 from repro_torch.core.engine import EngineConfig
-from repro_torch.graph.csr import Graph, live_degrees
+from repro_torch.graph.csr import EdgeDelta, Graph, live_degrees
 from repro_torch.graph.packing import EllPack
 from repro_torch.interop import tensor_from_numpy
 from repro_torch.obs import (
@@ -105,7 +113,6 @@ from repro_torch.streaming import incremental as INC
 #: item 8 ports them
 _SHARD_DELTA_STATS = {"full_reslice": 0, "short_circuit": 0}
 
-_STREAMING = "streaming graphs (delta_cap > 0, apply_updates) are ROADMAP queue 1 item 6"
 _SHARDED = "sharded pools (mesh, placements) are ROADMAP queue 1 item 8"
 
 
@@ -190,6 +197,21 @@ def _put(t: torch.Tensor, lane: int, value) -> torch.Tensor:
 def _host_copy(t: torch.Tensor) -> np.ndarray:
     """`t` as a numpy array that shares no memory with the state."""
     return t.detach().to("cpu", copy=True).numpy()
+
+
+def _lane_rows(plane: torch.Tensor, n: int) -> list:
+    """Each lane's (n,) column of an (n+1, Q) plane as its own host array."""
+    return [row.to("cpu", copy=True).numpy() for row in plane[:n].T.contiguous()]
+
+
+def _lane_plane(cols: list, scratch: float, dev: torch.device) -> torch.Tensor:
+    """An (n+1, Q) plane on `dev` from Q cached (n,) host columns, its
+    scratch row set to `scratch`. The columns go over as the rows of one
+    contiguous host stack and are transposed on the device (a host stack
+    along the lane axis writes every element at a stride of Q)."""
+    rows = torch.from_numpy(np.stack(cols)).to(dev)                  # (Q, n)
+    tail = torch.full((rows.shape[0], 1), scratch, dtype=rows.dtype, device=dev)
+    return torch.cat([rows, tail], 1).T.contiguous()
 
 
 class _LanePool:
@@ -397,6 +419,43 @@ class _LanePool:
         self.lane_it_base[lane] = int(saved["it"])
         self.engine_queries += 1
 
+    def _refresh_live_deg(self) -> None:
+        """The live-degree vector is constant per graph version — count it
+        once here (ctor / set_graph) and feed it to every admission."""
+        self.live_deg = live_degrees(self.g.out, self.delta)
+
+    def resume_residual(self, sg, report) -> int:
+        """RESUME every live lane of a residual-push pool across a streaming
+        update: correct the residual planes along the changed adjacency
+        columns (`streaming.residual_correct` — valid mid-run) and reseed
+        live lanes' frontiers from the full corrected residual field. Dirty
+        in-flight queries keep their settled mass instead of restarting;
+        clean lanes' corrections are identically zero, so their
+        trajectories continue bitwise unchanged. Returns the number of live
+        lanes left un-converged (one read of the lane counts)."""
+        m = INC.residual_correct(self.program, sg, self.state.m, report)
+        st = INC.reseed_from_residuals(self.program, self.cfg, self.g, self.state, m)
+        self._set_state(st)
+        live = [lane for lane, rid in enumerate(self.lane_rid) if rid is not None]
+        if not live:
+            return 0
+        counts = st.count.tolist()
+        return sum(counts[lane] > 0 for lane in live)
+
+    def _reset_masked_pull_cache(self) -> None:
+        """Masked-pull partial caches were computed against the old graph,
+        so rebuild them at identity (an overflow rebuild can change slice
+        ROW COUNTS) and force the next pull dense."""
+        st = self.state
+        if not (self.cfg.masked_pull and st.pull_dense is not None):
+            return
+        ident = self.program.combiner.identity_value()
+        prim = st.m[self.program.primary]
+        pseg = tuple(torch.full((s.rows, self.slots), ident, dtype=prim.dtype,
+                                device=prim.device) for s in self.pack.slices)
+        self._set_state(st._replace(
+            pseg=pseg, pull_dense=B._full(True, torch.bool, prim.device)))
+
     #: extra metadata planes to harvest alongside the result — residual
     #: pools set this to their residual field so cached entries carry the
     #: full (rank, resid) resumable state
@@ -435,7 +494,7 @@ class AlgoPool(_LanePool):
 
     def __init__(self, name: str, program: ACCProgram, g: Graph, pack: EllPack,
                  cfg: EngineConfig, slots: int, result_field: Optional[str] = None,
-                 telemetry: bool = False):
+                 delta: Optional[EdgeDelta] = None, telemetry: bool = False):
         assert slots >= 1
         self.name = name
         self.program = program
@@ -446,17 +505,18 @@ class AlgoPool(_LanePool):
             "result", program.primary)
         self.g = g
         self.pack = pack
+        self.delta = delta
         self.cfg = cfg
         self.slots = slots
         self.lane_rid: List[Optional[int]] = [None] * slots
         # all lanes start inactive (done=True, empty frontiers); the mirror
         # starts from what was asked for, with no read
-        self.live_deg = live_degrees(g.out)
+        self._refresh_live_deg()
         self.state = B.init_batch(program, g, cfg, [0] * slots,
                                   done=[True] * slots, pack=pack, deg=self.live_deg,
                                   telemetry=telemetry)
         self._mirror = ([True] * slots, [0] * slots, None)
-        self._step = B.make_batched_step(program, g, pack, cfg)
+        self._step = B.make_batched_step(program, g, pack, cfg, delta)
         self.engine_queries = 0
         self.steps = 0
         self._init_obs(telemetry)
@@ -468,6 +528,18 @@ class AlgoPool(_LanePool):
         # (rank, resid))
         self.cache_extra_fields = tuple(
             f for f in INC.resume_fields(program) if f != self.result_field)
+
+    # -- streaming support ---------------------------------------------------
+
+    def set_graph(self, g: Graph, pack: EllPack,
+                  delta: Optional[EdgeDelta]) -> None:
+        """Swap in updated overlay views: the live degrees are counted again,
+        the step is built on the new views, and the masked-pull caches are
+        reset (`_reset_masked_pull_cache`)."""
+        self.g, self.pack, self.delta = g, pack, delta
+        self._refresh_live_deg()
+        self._step = B.make_batched_step(self.program, g, pack, self.cfg, delta)
+        self._reset_masked_pull_cache()
 
 
 def _admit_lane(program, g: Graph, cfg, st: B.BatchState, source, lane,
@@ -526,8 +598,6 @@ class GraphServer:
         slo: Optional[SLOPolicy] = None,
         cohort_affinity: Optional[Dict[str, Sequence[int]]] = None,
     ):
-        if delta_cap > 0:
-            raise NotImplementedError(_STREAMING)
         if mesh is not None or placements:
             raise NotImplementedError(_SHARDED)
         cfg = cfg or default_config(g)
@@ -538,6 +608,15 @@ class GraphServer:
         self.obs = obs if obs is not None else Observability(
             enabled=telemetry, trace=trace)
         telemetry = self.obs.enabled
+        delta = None
+        self.sg = None
+        if delta_cap > 0:
+            from repro_torch.streaming import StreamingGraph
+
+            # the server serves the overlay's views; `pack` may be None
+            self.sg = StreamingGraph(g, delta_cap=delta_cap)
+            self.sg.version = graph_version
+            g, pack, delta = self.sg.graph, self.sg.pack, self.sg.delta
         self.g = g
         self.graph_version = graph_version
         self.queue_cap = queue_cap
@@ -559,7 +638,7 @@ class GraphServer:
             self.pool_groups[name] = [
                 AlgoPool(name if k == 1 else f"{name}#c{i}", prog, g, pack,
                          cfg, s // k, result_field=result_fields.get(name),
-                         telemetry=telemetry)
+                         delta=delta, telemetry=telemetry)
                 for i in range(k)]
         #: primary leaf per algorithm — the stable lookup surface
         #: (cache_params, program, result_field are identical across a
@@ -577,7 +656,7 @@ class GraphServer:
                     f"{name}@degraded", dprog, g, pack, cfg,
                     slo.degrade_slots,
                     result_field=result_fields.get(name),
-                    telemetry=telemetry,
+                    delta=delta, telemetry=telemetry,
                 )
                 # degraded results are NEVER cached (tagged pool, and
                 # _harvest_pool skips the put) — the bit-exact key must not
@@ -1260,8 +1339,229 @@ class GraphServer:
     # -- streaming updates ---------------------------------------------------
 
     def apply_updates(self, inserts=(), deletes=(), refresh: str = "incremental") -> dict:
-        """Absorb one edge-update batch (DESIGN.md §8): not ported yet."""
-        raise NotImplementedError(_STREAMING)
+        """Absorb one edge-update batch into the served graph (DESIGN.md §8).
+
+        1. Harvest finished lanes under the OLD version (their results are
+           valid for it and cache-fill there).
+        2. Apply the batch to the StreamingGraph; swap the overlaid views
+           into every pool (`AlgoPool.set_graph`).
+        3. Selectively invalidate the LRU: entries whose source cannot reach
+           a touched endpoint are RE-KEYED to the new version; dirty entries
+           are refreshed incrementally from their cached fixpoint when
+           `refresh='incremental'` and the program's contract allows
+           (`_refresh_cached`), else dropped.
+        4. Residual-push pools RESUME their live lanes from corrected
+           residuals; the other pools restart their dirtied in-flight lanes
+           from scratch on the new graph (clean lanes continue).
+
+        Returns a stats dict (also appended to `self.update_log`); `shipped`
+        is {} (no sharded pools, ROADMAP queue 1 item 8).
+        """
+        assert self.sg is not None, "GraphServer built without delta_cap"
+        assert refresh in ("incremental", "drop")
+        # (1) don't let finished old-graph results leak into the new version
+        for name, pool, degraded in self._leaves():
+            self.completions.extend(
+                self._harvest_pool(name, pool, degraded=degraded))
+
+        old_version = self.graph_version
+        report = self.sg.apply(inserts, deletes)
+        self.graph_version = report.version
+        self.g = self.sg.graph
+        for _name, pool, _degraded in self._leaves():
+            pool.set_graph(self.sg.graph, self.sg.pack, self.sg.delta)
+        # parked preempted state is version-bound: the saved residuals are
+        # only correctable while resident in a pool, so a version bump
+        # invalidates the parked copies and those queries restart
+        for rid, key in list(self._preempt_saved.items()):
+            self.cache.pop(key)
+            del self._preempt_saved[rid]
+
+        # (3) selective cache invalidation / refresh. dirty_src gating is
+        # only meaningful for SOURCE-parameterized programs; a source-free
+        # program's result depends on the whole graph, so any non-empty
+        # batch dirties it.
+        changed = (report.n_inserted + report.n_deleted) > 0
+        retained = dropped = refreshed = 0
+        dirty_entries: Dict[str, list] = {name: [] for name in self.pools}
+        for key, value in self.cache.take_version(old_version):
+            _v, algo, source, params = key
+            source_gated = (algo in self.pools
+                            and B._accepts_source(self.pools[algo].program))
+            clean = ((not report.dirty_src[source]) if source_gated
+                     else not changed)
+            if algo in self.pools and clean:
+                self.cache.put(
+                    make_key(self.graph_version, algo, source, params), value)
+                retained += 1
+            elif (algo in self.pools
+                  and params == self.pools[algo].cache_params):
+                # entries matching their pool's cache tag are refresh
+                # candidates, re-keyed under the same tag
+                dirty_entries[algo].append((source, value))
+            else:
+                dropped += 1
+        if refresh == "incremental":
+            refreshed, dropped2 = self._refresh_cached(dirty_entries)
+            dropped += dropped2
+        else:
+            dropped += sum(len(v) for v in dirty_entries.values())
+        self.cache.note_invalidated(dropped)
+
+        # (4) dirtied in-flight queries: residual-push pools RESUME every
+        # live lane from corrected residuals (clean lanes' corrections are
+        # identically zero — they continue bitwise unchanged); everything
+        # else restarts its dirty lanes from scratch on the new graph
+        re_enqueued_rids = []
+        resumed_inflight = 0
+        for _name, pool, _degraded in self._leaves():
+            if INC.is_residual(pool.program):
+                if pool.live():
+                    resumed_inflight += pool.resume_residual(self.sg, report)
+                continue
+            source_gated = B._accepts_source(pool.program)
+            for lane, rid in enumerate(pool.lane_rid):
+                if rid is None:
+                    continue
+                source = self._inflight_sources[rid]
+                # source-free lanes see the whole graph — any non-empty
+                # batch dirties them (mid-run non-monotone state is not a
+                # fixpoint, so contract resumes don't apply; restart)
+                if report.dirty_src[source] if source_gated else changed:
+                    pool.readmit(lane, source)
+                    re_enqueued_rids.append(rid)
+
+        stats = {
+            "version": self.graph_version,
+            "inserted": report.n_inserted,
+            "deleted": report.n_deleted,
+            "ignored": report.n_ignored,
+            "rebuild": report.rebuild,
+            "cache_retained": retained,
+            "cache_refreshed": refreshed,
+            "cache_dropped": dropped,
+            "reenqueued_inflight": len(re_enqueued_rids),
+            "reenqueued_rids": re_enqueued_rids,
+            "resumed_inflight": resumed_inflight,
+            # what each sharded pool's view swap moved to its mesh: no
+            # sharded pools here (ROADMAP queue 1 item 8)
+            "shipped": {},
+        }
+        self.update_log.append(stats)
+        self._rec("update_swap", version=self.graph_version,
+                  inserted=report.n_inserted, deleted=report.n_deleted,
+                  rebuild=report.rebuild,
+                  resumed=resumed_inflight, reenqueued=len(re_enqueued_rids))
+        return stats
+
+    def _refresh_cached(self, dirty_entries: Dict[str, list],
+                        chunk: int = 64) -> tuple:
+        """Incrementally recompute dirty cached fixpoints instead of
+        dropping them, per program regime:
+
+          * monotone single-field programs (BFS/SSSP/WCC): the cached (n,)
+            primary IS the full metadata, so the previous fixpoint is
+            reconstructible and resumes bit-identically;
+          * residual-push programs (`ppr_delta`, `pagerank_delta`): cached
+            entries carry the (estimate, residual) split (`CachedEntry`),
+            so the refresh corrects the residuals and RESUMES the fixpoint;
+          * declared-contract programs (params incremental='cascade' |
+            'reelect'): the cached result plane plus the declared
+            `resume_fields` extras rebuild the previous fixpoint, and
+            `incremental_batch` resumes it (falling back to full recompute
+            when the contract cannot cover the batch);
+          * everything else is dropped.
+
+        Entries refresh in chunks of up to `chunk` sources, one
+        `incremental_batch` a chunk on the device, its previous planes
+        stacked from the cached host columns (`_lane_plane`); each refreshed
+        lane's row is copied to the host on its own, so an entry owns its
+        memory.
+        """
+        from repro_torch.streaming import incremental_batch
+
+        refreshed = dropped = 0
+        n = self.sg.n
+        dev = self.sg.device
+
+        def put(algo, pool, sources, m, result_f, extra_fs):
+            cols = {f: _lane_rows(m[f], n) for f in (result_f, *extra_fs)}
+            for j, s in enumerate(sources):
+                value = (CachedEntry(cols[result_f][j],
+                                     {f: cols[f][j] for f in extra_fs})
+                         if extra_fs else cols[result_f][j])
+                self.cache.put(make_key(self.graph_version, algo, int(s),
+                                        pool.cache_params), value)
+
+        for algo, entries in dirty_entries.items():
+            if not entries:
+                continue
+            pool = self.pools[algo]
+            program = pool.program
+            est_f = program.param("estimate", "rank")
+            if INC.is_residual(program) and pool.result_field == est_f:
+                res_f = program.param("residual", "resid")
+                # only wrapped entries carry the resumable residual plane
+                ok = [(s, v) for s, v in entries
+                      if isinstance(v, CachedEntry) and res_f in v.extras]
+                dropped += len(entries) - len(ok)
+                for i in range(0, len(ok), chunk):
+                    part = ok[i:i + chunk]
+                    sources = np.asarray([s for s, _v in part], np.int64)
+                    prev_m = {
+                        est_f: _lane_plane([v.result for _s, v in part], 0.0, dev),
+                        res_f: _lane_plane([v.extras[res_f] for _s, v in part], 0.0, dev),
+                    }
+                    m, _info = incremental_batch(program, self.sg, self.cfg,
+                                                 sources, prev_m)
+                    put(algo, pool, sources, m, est_f, (res_f,))
+                    refreshed += len(part)
+                continue
+            contract = INC.incremental_contract(program)
+            if (contract in ("cascade", "reelect")
+                    and pool.result_field == program.param("result", program.primary)):
+                needed = [f for f in INC.resume_fields(program)
+                          if f != pool.result_field]
+                ok = [(s, v) for s, v in entries
+                      if not needed
+                      or (isinstance(v, CachedEntry)
+                          and all(f in v.extras for f in needed))]
+                dropped += len(entries) - len(ok)
+
+                def _col(v, f):
+                    if f == pool.result_field:
+                        return v.result if isinstance(v, CachedEntry) else v
+                    return v.extras[f]
+
+                fields = sorted({pool.result_field, *needed})
+                for i in range(0, len(ok), chunk):
+                    part = ok[i:i + chunk]
+                    sources = np.asarray([s for s, _v in part], np.int64)
+                    prev_m = {f: _lane_plane([_col(v, f) for _s, v in part], 0.0, dev)
+                              for f in fields}
+                    m, _info = incremental_batch(program, self.sg, self.cfg,
+                                                 sources, prev_m)
+                    put(algo, pool, sources, m, pool.result_field, tuple(needed))
+                    refreshed += len(part)
+                continue
+            reconstructible = (
+                INC.is_monotone(program)
+                and set(pool.state.m.keys()) == {program.primary}
+                and pool.result_field == program.primary
+            )
+            if not reconstructible:
+                dropped += len(entries)
+                continue
+            ident = program.combiner.identity_value()
+            for i in range(0, len(entries), chunk):
+                part = entries[i:i + chunk]
+                sources = np.asarray([s for s, _v in part], np.int64)
+                prev_m = {program.primary: _lane_plane([v for _s, v in part], ident, dev)}
+                m, _info = incremental_batch(program, self.sg, self.cfg,
+                                             sources, prev_m)
+                put(algo, pool, sources, m, program.primary, ())
+                refreshed += len(part)
+        return refreshed, dropped
 
     def stats(self) -> dict:
         """The serving stack's ONE stats surface (DESIGN.md §12) — every
@@ -1271,10 +1571,10 @@ class GraphServer:
           cache          ResultCache.stats(): size, capacity, hits, misses,
                          hit_rate, evictions, invalidations
           graph_version  version served right now
-          graph          {n_nodes, n_edges, streaming} — `streaming` is None
-                         (static servers; streaming is ROADMAP queue 1
-                         item 6)
-          updates        count of absorbed update batches (0)
+          graph          {n_nodes, n_edges, streaming} — `streaming` is
+                         StreamingGraph.stats() (delta overlay occupancy
+                         `delta_fill`, rebuilds) or None for static servers
+          updates        count of absorbed update batches
           last_update    the newest `apply_updates` stats dict, or None
           shard_delta    the sharded engines' overlay re-slice counters
                          (full_reslice / short_circuit), zero until item 8
@@ -1385,7 +1685,7 @@ class GraphServer:
             "graph": {
                 "n_nodes": self.g.n_nodes,
                 "n_edges": self.g.n_edges,
-                "streaming": None,
+                "streaming": self.sg.stats() if self.sg is not None else None,
             },
             "updates": len(self.update_log),
             "last_update": self.update_log[-1] if self.update_log else None,

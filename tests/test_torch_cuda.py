@@ -666,3 +666,118 @@ def test_preempt_resume_on_the_card_bit_identical(cuda):
     for rid in range(4):
         assert whole[rid][1] == cut[rid][1]
         assert np.array_equal(whole[rid][0].view(np.int32), cut[rid][0].view(np.int32)), rid
+
+
+# ---------------------------------------------------------------------------
+# streaming on the card
+# ---------------------------------------------------------------------------
+
+
+def test_delta_slice_merge_on_the_card_bit_equal_to_plain(cuda):
+    """The delta slice lists receivers in insertion order: 900 and 40
+    descending, 900 twice and not side by side. Its merge on the card (a
+    stable sort, then `segment_reduce`) is bit-equal, for sum, min and max
+    at D = 1 and D = 32, to the kernel's fold order on the sorted ids
+    (`segment_reduce_ordered`, on the CPU), and at the inserted receivers
+    (segments of two rows) to the plain route on the CPU; the solo
+    engine's bfs/sssp over the overlay on the card equal the CPU port's."""
+    from repro_torch.core.acc import Combiner
+    from repro_torch.streaming import StreamingGraph
+
+    out = {}
+    for dev in ("cpu", cuda):
+        sg = StreamingGraph(G.rmat(10, 8, seed=7, directed=True, device=dev), delta_cap=64)
+        ins = [(3, 900), (17, 40), (600, 900), (5, 40), (1000, 2)]
+        assert sg.apply(ins).n_inserted == 5
+        s = sg.pack.slices[-1]
+        assert not s.rows_ascending and s.row_id[:5].tolist() == [900, 40, 900, 40, 2]
+        n = sg.n
+        gen = torch.Generator().manual_seed(3)
+        res = {}
+        for d in (1, 32):
+            part = (torch.rand((s.rows, d), generator=gen).squeeze(-1) * 64).to(dev)
+            ids, order = torch.sort(s.row_id.cpu(), stable=True)
+            for comb in ("sum", "min", "max"):
+                res[(d, comb)] = Combiner(comb, "aggregation").segment(
+                    part, s.row_id, n + 1, sorted_ids=s.rows_ascending).cpu()
+                res[(d, comb, "ordered")] = tsr.segment_reduce_ordered(
+                    part.cpu()[order], ids, n + 1, comb, float(
+                        {"sum": 0.0, "min": np.inf, "max": -np.inf}[comb]))
+        cfg = E.EngineConfig(frontier_cap=n, edge_cap=sg.graph.n_edges, alpha=0.0)
+        ops.reset_launches()
+        for name in ("bfs", "sssp"):
+            m, st = E.run(A.ALL[name](3), sg.graph, sg.pack, cfg, delta=sg.delta)
+            assert int(st["pull_iters"]) > 0
+            res[name] = m["dist"].cpu()
+        if dev != "cpu":
+            assert ops.launch_counts()["segment_reduce"] > 0
+        out[str(dev)] = res
+    card, cpu = out[str(cuda)], out["cpu"]
+    for d in (1, 32):
+        for comb in ("sum", "min", "max"):
+            assert torch.equal(_bits(card[(d, comb)]), _bits(cpu[(d, comb, "ordered")])), (d, comb)
+            for v in (900, 40, 2):
+                assert torch.equal(_bits(card[(d, comb)][v]), _bits(cpu[(d, comb)][v])), (d, comb, v)
+    for name in ("bfs", "sssp"):
+        assert torch.equal(_bits(card[name]), _bits(cpu[name])), name
+
+
+def test_incremental_batch_on_the_card_equals_full_recompute(cuda):
+    """rmat(12) on the card, an insert+delete batch: bfs, sssp and wcc
+    (monotone) bit-equal to `run_batch` on the same views, ppr_delta
+    (residual) within tests/test_ppr_delta.py's ATOL 2e-3; then a
+    deletion-only batch: kcore(8) (cascade) and mis (reelect) bit-equal."""
+    from repro_torch.streaming import StreamingGraph, incremental_batch
+
+    g = G.rmat(12, 16, seed=1, device=cuda)
+    sg = StreamingGraph(g, delta_cap=256)
+    cfg = default_config(g, max_iters=256)
+    sources = [0, 5, 77, 1000]
+    progs = {"bfs": A.bfs(0), "sssp": A.sssp(0), "wcc": A.wcc(),
+             "ppr_delta": A.ppr_delta(0), "kcore": A.kcore(8), "mis": A.mis()}
+    prev = {k: TBE.run_batch(p, sg.graph, sg.pack, cfg, sources, delta=sg.delta)[0]
+            for k, p in progs.items()}
+    rng = np.random.default_rng(0)
+    ins = [(int(rng.integers(0, 4096)), int(rng.integers(0, 4096)),
+            float(rng.integers(1, 65))) for _ in range(32)]
+    e = rng.choice(g.n_edges, 16, replace=False)
+    src, dst = g.out.src_idx[e].tolist(), g.out.col_idx[e].tolist()
+    rep = sg.apply(ins, list(zip(src[:8], dst[:8])))
+    assert rep.n_inserted > 0 and rep.n_deleted > 0
+    for name in ("bfs", "sssp", "wcc", "ppr_delta"):
+        m, info = incremental_batch(progs[name], sg, cfg, sources, prev[name], rep)
+        full, _ = TBE.run_batch(progs[name], sg.graph, sg.pack, cfg, sources, delta=sg.delta)
+        if name == "ppr_delta":
+            assert info["mode"] == "residual-resume"
+            assert float((m["rank"] - full["rank"]).abs().max()) < 2e-3
+        else:
+            assert info["mode"] == "monotone-incremental"
+            for k in full:
+                assert torch.equal(_bits(m[k]), _bits(full[k])), (name, k)
+    for name in ("kcore", "mis"):
+        prev[name] = TBE.run_batch(progs[name], sg.graph, sg.pack, cfg, sources,
+                                   delta=sg.delta)[0]
+    rep = sg.apply(deletes=list(zip(src[8:], dst[8:])))
+    for name, mode in (("kcore", "cascade-resume"), ("mis", "reelect-resume")):
+        m, info = incremental_batch(progs[name], sg, cfg, sources, prev[name], rep)
+        full, _ = TBE.run_batch(progs[name], sg.graph, sg.pack, cfg, sources, delta=sg.delta)
+        assert info["mode"] == mode, info
+        field = progs[name].param("result", progs[name].primary)
+        assert torch.equal(_bits(m[field]), _bits(full[field])), name
+
+
+def test_streaming_server_on_the_card_verifies_every_completion(capsys, cuda):
+    """`stream_graph` on the card: bfs, sssp and ppr_delta at RMAT scale 10,
+    two update batches while requests are in flight (one overflowing the
+    delta buffer), every completion checked against `run_batch` on the
+    views of the version it completed under."""
+    from repro_torch.launch import stream_graph
+
+    rc = stream_graph.main(["--scale", "10", "--slots", "4", "--requests", "16",
+                            "--update-every", "8", "--inserts", "8", "--deletes", "4",
+                            "--delta-cap", "24", "--algos", "bfs,sssp,ppr_delta",
+                            "--verify"])
+    out = capsys.readouterr().out
+    assert rc == 0, out
+    assert "verify: 16/16 OK" in out and out.count("update v") == 2
+    assert "rebuild=True" in out

@@ -76,7 +76,7 @@ def test_pack_with_positions_and_stats_equal(buckets, split, min_rows):
     jp, jpos = jpacking.pack_ell_with_positions(j.inc, buckets, split, min_rows)
     tp, tpos = tpacking.pack_ell_with_positions(t.inc, buckets, split, min_rows)
     assert_slices_equal(jp, tp)
-    assert tpos.dtype == np.int64 and np.array_equal(jpos, tpos)
+    assert tpos.dtype == torch.int64 and np.array_equal(jpos, tpos.numpy())
     assert jpacking.pack_stats(jp) == tpacking.pack_stats(tp)
     assert_slices_equal(jpacking.pack_ell(j.inc, buckets, split, min_rows),
                         tpacking.pack_ell(t.inc, buckets, split, min_rows))

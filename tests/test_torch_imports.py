@@ -46,8 +46,8 @@ def test_package_imports_without_jax():
         "from repro_torch.serving import batch_engine, cache, scheduler, slo\n"
         "from repro_torch.obs import metrics, trace, recorder, health\n"
         "from repro_torch import streaming\n"
-        "from repro_torch.streaming import incremental\n"
-        "from repro_torch.launch import catalog, serve_graph\n"
+        "from repro_torch.streaming import delta, incremental\n"
+        "from repro_torch.launch import catalog, serve_graph, stream_graph\n"
         "g = generators.rmat(6, 4, seed=1, device='cpu')\n"
         "p = packing.pack_ell(g.inc)\n"
         "m, st = engine.run(algorithms.bfs(0), g, p,\n"
@@ -60,6 +60,13 @@ def test_package_imports_without_jax():
         "for a in ('bfs', 'ppr_delta', 'kcore'):\n"
         "    srv.submit(a, 3)\n"
         "assert len(srv.drain()) == 3 and srv.stats()['obs']['enabled']\n"
+        "ssrv = serving.GraphServer(g, None, catalog.make_catalog(), slots=2,\n"
+        "                           delta_cap=8)\n"
+        "for a in ('bfs', 'ppr_delta', 'kcore'):\n"
+        "    ssrv.submit(a, 3)\n"
+        "ssrv.pump()\n"
+        "assert ssrv.apply_updates([(1, 2), (4, 5)], [(0, int(g.out.col_idx[0]))])['version'] == 1\n"
+        "assert len(ssrv.drain()) == 3 and ssrv.stats()['graph']['streaming']['version'] == 1\n"
         "assert not any(k == 'jax' or k.startswith(('jax.', 'repro.'))\n"
         "               for k, v in sys.modules.items() if v is not None)\n"
     )

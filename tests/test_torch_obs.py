@@ -8,7 +8,8 @@ stack on directed rmat(7, 4, seed=3): a telemetry-off server issues no
 `device_fetch` (`TRANSFER_COUNT`) and is bit-neutral against a
 telemetry-on one; the telemetry counters, iteration logs and push/pull
 decision audit log equal the reference's. The cases mirror tests/test_obs.py
-(its streaming and forced-mesh cases wait for ROADMAP queue 1 items 6 and 8).
+(its streaming cases are in tests/test_torch_stream_serving.py; its
+forced-mesh cases wait for ROADMAP queue 1 item 8).
 """
 
 from __future__ import annotations

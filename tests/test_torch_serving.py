@@ -392,20 +392,24 @@ def test_readmit_restarts_a_live_lane(graphs):
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"delta_cap": 16}, "item 6"),
+    ({"delta_cap": 16, "mesh": object()}, "item 8"),
     ({"mesh": object()}, "item 8"),
     ({"placements": {"bfs": "edge_sharded"}}, "item 8"),
 ])
 def test_unported_parts_raise(graphs, kw, item):
+    """Only the sharded pools are left (ROADMAP queue 1 item 8); a streaming
+    server (`delta_cap > 0`) is tests/test_torch_stream_serving.py's."""
     _, _, tg, tp = graphs
     with pytest.raises(NotImplementedError, match=item):
         TS.GraphServer(tg, tp, {"bfs": TA.bfs(0)}, slots=2, **kw)
 
 
 def test_apply_updates_raises(graphs):
+    """A static server (no `delta_cap`) has no graph to update, as in the
+    reference."""
     _, _, tg, tp = graphs
     srv = TS.GraphServer(tg, tp, {"bfs": TA.bfs(0)}, slots=2)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(AssertionError, match="delta_cap"):
         srv.apply_updates(inserts=[(0, 1)])
 
 
