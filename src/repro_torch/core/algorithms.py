@@ -27,10 +27,20 @@ from repro_torch.core.frontier import compact_mask
 from repro_torch.kernels.ell_spmv import BIG
 
 
+def _set_source(t: torch.Tensor, source: int, value: float) -> torch.Tensor:
+    """`t[source] = value` as the reference's `.at[source].set(value)`: an id
+    in [-(n+1), n] is written (negatives wrap, -1 is the scratch row), any
+    other is dropped. The raw id never indexes the tensor: on the card an
+    out-of-range index is a device-side assert."""
+    size = t.shape[0]
+    if -size <= int(source) < size:
+        t[int(source)] = value
+    return t
+
+
 def _one_hot_dist(n: int, source: int, dev) -> torch.Tensor:
-    dist = torch.full((n + 1,), BIG, dtype=torch.float32, device=dev)
-    dist[source] = 0.0
-    return dist
+    return _set_source(torch.full((n + 1,), BIG, dtype=torch.float32, device=dev),
+                       source, 0.0)
 
 
 def _degf(deg: torch.Tensor) -> torch.Tensor:
@@ -152,8 +162,8 @@ def ppr(src: int = 0, damping: float = 0.85, tol: float = 1e-5,
 
     def init(n, deg, source=src):
         dev = deg.device
-        pref = torch.zeros((n + 1,), dtype=torch.float32, device=dev)
-        pref[source] = 1.0
+        pref = _set_source(torch.zeros((n + 1,), dtype=torch.float32, device=dev),
+                           source, 1.0)
         degf = _degf(deg)
         return ({"contrib": pref / degf, "rank": pref, "pref": pref, "deg": degf},
                 torch.arange(n, dtype=torch.int32, device=dev))
@@ -191,8 +201,8 @@ def ppr_delta(src: int = 0, damping: float = 0.85, tol: float = 1e-5,
 
     def init(n, deg, source=src):
         dev = deg.device
-        pref = torch.zeros((n + 1,), dtype=torch.float32, device=dev)
-        pref[source] = 1.0
+        pref = _set_source(torch.zeros((n + 1,), dtype=torch.float32, device=dev),
+                           source, 1.0)
         rank = torch.zeros((n + 1,), dtype=torch.float32, device=dev)
         degf = _degf(deg)
         resid = pref

@@ -89,6 +89,14 @@ def _i32(x, dev) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _row_index(i: torch.Tensor, n: int) -> torch.Tensor:
+    """Index `i` into an (n+1,) row pointer as a JAX gather reads it: a
+    negative id wraps once, then it is clamped. Only an init's frontier
+    can hold an id below -(n+1) (an out-of-range query source); torch would
+    raise on it and the card would assert."""
+    return torch.where(i < 0, i + (n + 1), i).clamp_(0, n)
+
+
 def expand_frontier(csr: CSR, ids: torch.Tensor, count: torch.Tensor,
                     edge_cap: int):
     """Expand the frontier's adjacency into a flat (edge_cap,) buffer with
@@ -97,7 +105,7 @@ def expand_frontier(csr: CSR, ids: torch.Tensor, count: torch.Tensor,
     (..., cap) with `count` (...,).
 
     Out-of-range gathers are clamped explicitly (JAX clamps silently, CUDA
-    would fault).
+    would fault); `_row_index` treats a negative id as JAX does.
     """
     n = csr.n_nodes
     dev = ids.device
@@ -105,7 +113,8 @@ def expand_frontier(csr: CSR, ids: torch.Tensor, count: torch.Tensor,
     rp = csr.row_ptr
     valid_v = torch.arange(cap, dtype=torch.int32, device=dev) < count[..., None]
     safe = torch.where(valid_v, torch.clamp(ids, max=n - 1), 0).long()
-    deg = torch.where(valid_v, rp[safe + 1] - rp[safe], 0)
+    lo = rp[_row_index(safe, n)]
+    deg = torch.where(valid_v, rp[_row_index(safe + 1, n)] - lo, 0)
     cum = torch.cumsum(deg, -1, dtype=torch.int32)              # inclusive
     if cap > 0:
         total = cum[..., -1]
@@ -118,7 +127,7 @@ def expand_frontier(csr: CSR, ids: torch.Tensor, count: torch.Tensor,
     start = torch.gather(cum, -1, owner) - torch.gather(deg, -1, owner)
     within = e - start
     src = torch.gather(safe, -1, owner)
-    ptr = torch.clamp(rp[src] + within, max=csr.n_edges - 1).long()
+    ptr = torch.clamp(torch.gather(lo, -1, owner) + within, max=csr.n_edges - 1).long()
     valid_e = e < torch.clamp(total, max=edge_cap)[..., None]
     valid_e = valid_e.expand(src.shape)
     dst = torch.where(valid_e, csr.col_idx[ptr], n)
@@ -222,7 +231,8 @@ def _frontier_volume(csr: CSR, ids: torch.Tensor, count: torch.Tensor
     n = csr.n_nodes
     valid = torch.arange(ids.shape[-1], dtype=torch.int32, device=ids.device) < count[..., None]
     safe = torch.where(valid, torch.clamp(ids, max=n - 1), 0).long()
-    deg = torch.where(valid, csr.row_ptr[safe + 1] - csr.row_ptr[safe], 0)
+    rp = csr.row_ptr
+    deg = torch.where(valid, rp[_row_index(safe + 1, n)] - rp[_row_index(safe, n)], 0)
     return torch.sum(deg, -1, dtype=torch.int32)
 
 

@@ -465,6 +465,9 @@ def init_batch(program: ACCProgram, g, cfg: EngineConfig, sources, done=None,
         f_q = f_1.to(torch.int64)[None, :].expand(q, f_1.shape[0])
     mask = torch.zeros((n + 1, q), dtype=torch.bool, device=dev)
     lane = torch.arange(q, device=dev)[:, None].expand(f_q.shape)
+    # the reference's scatter drops ids outside [-(n+1), n] (an out-of-range
+    # source); they land on the scratch row, cleared below
+    f_q = torch.where((f_q >= -(n + 1)) & (f_q <= n), f_q, n)
     mask[f_q, lane] = True
     mask[-1] = False
     done = (torch.zeros((q,), dtype=torch.bool, device=dev) if done is None
