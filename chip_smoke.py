@@ -176,10 +176,43 @@ Phases (any failure exits non-zero; nothing is caught):
                  `run_batch` on the views of its version (bit-equal,
                  ppr_delta within 1e-3), queries/s, peak memory;
                  (d) `launch.stream_graph --verify` at RMAT-16;
- 11. report    — the `kernels` JSON line (all nine kernels, flash as two
+ 11. sharded   — SLO replay and sharded serving on the same graph, every
+                 mesh a grid of this one card (cuda:0 four times): (k) the
+                 path's kernels at its shapes against their plain versions,
+                 timed beside their bounds and library calls: segment_reduce
+                 at D = 8 on edge shard 0's scan of a (1, 4) mesh (32.6 M
+                 sorted destinations), frontier_pack of the shard's
+                 union-frontier edge mask at the compacted scan's cap,
+                 ell_combine_batched at Q = 8 (a replicated query shard's
+                 pull); (a) `run_sharded` against `run_batch` on phase 8's
+                 sources: replicated (4, 1) at Q = 32, bfs/sssp/ppr lanes
+                 and mode trace bit-equal; edge-sharded (1, 4) at Q = 8,
+                 bfs/sssp bit-equal with the compacted scan on and off,
+                 ppr/ppr_delta within rtol 1e-5, atol 1e-7; a (1, 1) mesh
+                 bit-equal for all four; queries/s, per-shard scan volumes,
+                 peak memory; (b) two placed `GraphServer`s (bfs, sssp, ppr
+                 replicated (4, 1) at 32 slots; bfs, sssp, ppr_delta
+                 edge-sharded (1, 4) at 8 slots), 128 requests each as
+                 `stream_graph` draws them with phase 10's update batch
+                 every 32, every completion held against `run_batch` on its
+                 version's views, each update's `shipped` logged; (c)
+                 `repro_torch.slo.replay` of a 10 s mmpp workload (burst
+                 factor 6; "paid" bfs/sssp with a 1.5 s deadline, "batch"
+                 ppr_delta best effort) at phase 9's served rate with an
+                 update every 2.5 s, after `warmup`, on one device with the
+                 full policy and on a (4, 1) mesh with its drop half: zero
+                 crashed lanes, every offered query accounted for, goodput
+                 > 0, the last 8 engine-served completions of each
+                 algorithm held against `run_batch`; (d) `slo_replay
+                 --assert-goodput --trace` (one device, `--mesh 4x1`),
+                 `obs_report` and `scripts/trace_schema.py` on its trace,
+                 `serve_graph --mesh 1x4 --placement edge_sharded --verify`
+                 and `stream_graph --mesh 4x1 --verify` at RMAT-16;
+ 12. report    — the `kernels` JSON line (all nine kernels, flash as two
                  routes; ell_combine, the batched pull, segment_reduce and
-                 frontier_pack count phases 9 and 10's launches too), the
-                 card line, then the last line {"ok": true, "device": {...}}.
+                 frontier_pack count phases 9, 10 and 11's launches too),
+                 the card line, then the last line
+                 {"ok": true, "device": {...}}.
 
 Kernel times are CUDA-event means over a run of calls. Kernels under 0.1 ms
 (frontier_pack, embedding_bag, the segment_reduce merges) and their library
@@ -200,6 +233,7 @@ from __future__ import annotations
 import argparse
 import collections
 import dataclasses
+import gc
 import json
 import re
 import subprocess
@@ -1765,6 +1799,7 @@ def serving_phase(dev, A, E, S, BE, obs, ops, ell, g, pack, profile: bool) -> di
     kernels = {k: counts[k] for k in ("ell_combine_batched", "segment_reduce", "frontier_pack")}
     if not all(kernels.values()):
         raise AssertionError(f"a kernel of the serving path was not launched: {kernels}")
+    MEASURED["served_qps"] = len(comps) / t_a
     log(f"[9 serving] (a) {len(comps)} requests in {t_a:.3f} s warm: {len(comps) / t_a:.1f} "
         f"queries/s ({sum(queries.values()) / t_a:.1f} engine queries/s), {hits} cache hits, "
         f"{pressed} backpressure events, {srv._round} pump rounds")
@@ -2432,6 +2467,577 @@ def streaming_phase(dev, A, E, S, ops, ell, sr, fp, g, nz) -> dict:
     return kernels
 
 
+# ---------------------------------------------------------------------------
+# phase 11: SLO replay and sharded serving
+# ---------------------------------------------------------------------------
+
+SHARD_D = 4                    # query shards of the replicated placement
+SHARD_S = 4                    # edge shards of the edge-sharded placement
+SHARD_Q = 32                   # replicated lanes: Q/D = 8 a query shard
+SHARD_Q_EDGE = 8               # edge-sharded lanes (each shard's scan is (E_s, Q))
+SHARD_REQUESTS = 128
+SHARD_UPDATE_EVERY = 32
+SLO_SECONDS = 10.0
+SLO_UPDATE_EVERY = 2.5
+SLO_DEADLINE_MS = 1500.0
+#: numbers one phase hands a later one (phase 9's served queries/s sets
+#: phase 11's arrival rate)
+MEASURED: dict = {}
+
+
+def phase_sources(g) -> list:
+    """Phase 8's 64 sources: vertex 0, 62 distinct vertices of nonzero
+    degree drawn with numpy seed 17, and the 7th again."""
+    deg = g.out.degrees().cpu().numpy()
+    rng = np.random.default_rng(17)
+    draw = rng.choice(np.flatnonzero(deg[1:] > 0) + 1, 62, replace=False)
+    return [0] + [int(x) for x in draw] + [int(draw[5])]
+
+
+def hold_sharded_kernels(dev, A, S, ell, sr, fp, g, pack, cfg, report) -> None:
+    """The sharded path's kernels at its shapes on the RMAT-22 graph, held
+    against their plain versions (not counted): `segment_reduce` at
+    D = SHARD_Q_EDGE on edge shard 0's scan of a (1, SHARD_S) mesh (its
+    destinations as the shard holds them, sorted), by `check_segment`;
+    `frontier_pack` of the shard's union-frontier edge mask at the compacted
+    scan's cap, bit-equal; `ell_combine_batched` at Q = SHARD_Q / SHARD_D on
+    the four slices (a replicated query shard's pull) for hop/min, add_w/min
+    and copy/sum, bit-equal. Each timed beside its byte bound, its plain
+    version and its library call; into `report`."""
+    from repro_torch.serving import sharded as SH
+
+    n, q = g.n_nodes, SHARD_Q_EDGE
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(23)
+    mesh = S.make_serving_mesh(1, SHARD_S, devices=[dev] * SHARD_S)
+    eng = S.ShardedBatchEngine(A.bfs(0), g, pack, cfg, mesh, placement="edge_sharded")
+    v = eng.shard_views(0)[0]
+    e = v.src.shape[0]
+    vals = torch.rand(e, q, device=dev, generator=gen)
+    t0 = time.perf_counter()
+    s_err = check_segment(sr, vals, v.dst, n + 1, f"on edge shard 0's scan E={e} D={q}")
+    ids64 = v.dst.long()
+    lib_out = torch.zeros(n + 1, q, device=dev)
+    bnd = bound_ms(e * 4 + e * q * 4 + (n + 1) * q * 4, e * q)
+    seg = dict(E=e, D=q, num=n + 1,
+               ms=cuda_ms(lambda: sr.segment_reduce_cuda(vals, v.dst, n + 1, "sum"), 10),
+               min_ms=cuda_ms(lambda: sr.segment_reduce_cuda(vals, v.dst, n + 1, "min"), 10),
+               plain_ms=cuda_ms(lambda: sr.segment_reduce_plain(vals, v.dst, n + 1, "sum"), 2, 1),
+               bound_ms=bnd[0], bound_by=bnd[1],
+               library_ms=cuda_ms(lambda: lib_out.index_add_(0, ids64, vals), 5),
+               library_min_ms=cuda_ms(lambda: lib_out.scatter_reduce_(
+                   0, ids64[:, None].expand(e, q), vals, "amin"), 3))
+    report["segment_reduce"]["edge_shard_scan"] = seg
+    report["segment_reduce"]["max_abs_err"] = max(report["segment_reduce"]["max_abs_err"], s_err)
+    log(f"[11 sharded] (k) segment_reduce on edge shard 0's scan E={e} D={q} num={n + 1}: sum "
+        f"{seg['ms']:.4f} ms, min {seg['min_ms']:.4f}, bound {seg['bound_ms']:.4f} by "
+        f"{seg['bound_by']}, plain {seg['plain_ms']:.4f}, index_add_ {seg['library_ms']:.4f}, "
+        f"scatter_reduce_ amin {seg['library_min_ms']:.4f}; sum, min, max bit-equal to "
+        f"segment_reduce_ordered")
+    del vals, ids64, lib_out
+    cap = SH._compact_cap(e, cfg)
+    union = torch.rand(n + 1, device=dev, generator=gen) < 0.2
+    eact = union[v.src.long()] & v.valid
+    pk = lambda: fp.frontier_pack_cuda(eact, cap)
+    pp = lambda: fp.frontier_pack_plain(eact, cap)
+    if not all(bit_equal(x, y) for x, y in zip(pk(), pp())):
+        raise AssertionError(f"frontier_pack differs on the shard's edge mask E={e} cap={cap}")
+    live = int(eact.sum())
+    lib = lambda: torch.nonzero_static(eact, size=cap, fill_value=e)
+    if not torch.equal(pk()[0].long(), lib()[:, 0]):
+        raise AssertionError("frontier_pack and torch.nonzero_static disagree on the shard")
+    bnd = bound_ms(e + cap * 4 + 5, e * 2)
+    sel = dict(E=e, cap=cap, live=live, ms=cuda_ms(pk, 20), plain_ms=cuda_ms(pp, 3, 1),
+               bound_ms=bnd[0], bound_by=bnd[1], library_ms=cuda_ms(lib, 20))
+    report["frontier_pack"]["edge_shard_select"] = sel
+    log(f"[11 sharded] (k) frontier_pack of edge shard 0's union-frontier mask E={e} "
+        f"({live} set) at cap {cap}: {sel['ms']:.4f} ms, bound {sel['bound_ms']:.4f}, plain "
+        f"{sel['plain_ms']:.4f}, torch.nonzero_static {sel['library_ms']:.4f}; bit-equal")
+    del union, eact, eng, v
+    qd = SHARD_Q // SHARD_D
+    vals = torch.rand(n + 1, qd, device=dev, generator=gen) * 64
+    times = collections.Counter()
+    for s in pack.slices:
+        for op, comb in (("hop", "min"), ("add_w", "min"), ("copy", "sum")):
+            a = ell.ell_combine_batched_cuda(s.nbr, s.wgt, vals, op, comb)
+            if not bit_equal(a, ell.ell_combine_batched_plain(s.nbr, s.wgt, vals, op, comb)):
+                raise AssertionError(f"ell_combine_batched {op}/{comb} Q={qd} differs on the "
+                                     f"{tuple(s.nbr.shape)} slice")
+            times[f"{op}/{comb}"] += cuda_ms(
+                lambda s=s, op=op, comb=comb: ell.ell_combine_batched_cuda(s.nbr, s.wgt, vals,
+                                                                           op, comb), 10)
+    q8 = report["ell_combine_batched"]["q8"]
+    rep = dict(Q=qd, ms=times["copy/sum"], times=dict(times), bound_ms=q8["bound_ms"],
+               plain_ms=q8["plain_ms"], library_ms=q8["library_ms"],
+               route=ell.batched_layout(qd, pack.slices[0].width, vals.data_ptr(), 0).route)
+    report["ell_combine_batched"]["replicated_shard"] = rep
+    log(f"[11 sharded] (k) ell_combine_batched Q={qd} (a replicated query shard's pull) on "
+        f"{len(pack.slices)} slices, route {rep['route']}: "
+        + ", ".join(f"{k} {t:.4f} ms" for k, t in times.items())
+        + f"; bound {rep['bound_ms']:.4f}, plain {rep['plain_ms']:.4f}, torch.sparse.mm "
+        f"{rep['library_ms']:.4f} (phase 8's Q = 8 at these shapes); hop/min, add_w/min, "
+        f"copy/sum bit-equal ({time.perf_counter() - t0:.1f} s)")
+    del vals
+
+
+def reset_peak() -> None:
+    """Free what earlier work left on the card, reference cycles included,
+    and restart the peak count, so that a peak is this part's own."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+class ResidualCheck:
+    """Holds a server's ppr_delta completions against `run_batch`. A lane
+    in flight across an update (resumed by `resume_residual`), a cache
+    entry that an update refreshed, the completions served from either,
+    and a preempted lane carry a resumed fixpoint: within 1e-3. Every other
+    completion within rtol 1e-5, atol 1e-7, as (a) holds the engine."""
+
+    def __init__(self, srv, algo: str = "ppr_delta"):
+        self.srv, self.algo = srv, algo
+        self.rids, self.keys = set(), set()
+        self.n = {"fresh": 0, "resumed": 0}
+        self.worst = {"fresh": 0.0, "resumed": 0.0}
+
+    def apply(self, fn):
+        """Run one `apply_updates` (`fn`, returning (stats, seconds)) and
+        mark the lanes and cache entries it resumes."""
+        if self.algo in self.srv.pools:
+            self.rids |= {r for r in self.srv.pools[self.algo].lane_rid if r is not None}
+        st, t = fn()
+        self.keys |= {(k[0], k[2]) for k in self.srv.cache._entries
+                      if k[0] == st["version"] and k[1] == self.algo}
+        return st, t
+
+    def hold(self, c, want: np.ndarray, label: str) -> None:
+        """Completions in the order they were served, so that a cache hit
+        on a resumed lane's entry is marked before it is held."""
+        key = (c.graph_version, c.source)
+        kind = ("resumed" if c.rid in self.rids or c.preempted
+                or (c.from_cache and key in self.keys) else "fresh")
+        d = float(np.abs(c.result - want).max())
+        self.n[kind] += 1
+        self.worst[kind] = max(self.worst[kind], d)
+        if kind == "resumed":
+            self.keys.add(key)
+            if not d < 1e-3:
+                raise AssertionError(f"{label}: a resumed lane {d:.3g} from run_batch")
+        else:
+            np.testing.assert_allclose(c.result, want, rtol=1e-5, atol=1e-7, err_msg=label)
+
+    def summary(self) -> str:
+        return (f"ppr_delta {self.n['fresh']} within {self.worst['fresh']:.3g} (rtol 1e-5, "
+                f"atol 1e-7) and {self.n['resumed']} resumed across an update within "
+                f"{self.worst['resumed']:.3g} (limit 1e-3)")
+
+
+def lanes_equal(name, a, b, exact) -> float:
+    """bit-equal (exact) or within rtol 1e-5, atol 1e-7; the worst gap."""
+    if exact:
+        if not bit_equal(a, b):
+            raise AssertionError(f"{name}: lanes differ")
+        return 0.0
+    torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-7)
+    return abs_err(a, b)
+
+
+def engine_runs(dev, A, S, ops, g, pack, cfg, sources) -> collections.Counter:
+    """(a): `ShardedBatchEngine` through `run_sharded` against `run_batch`:
+    replicated on a (SHARD_D, 1) mesh at Q = SHARD_Q for bfs, sssp and ppr
+    (lanes and mode trace bit-equal); edge-sharded on a (1, SHARD_S) mesh at
+    Q = SHARD_Q_EDGE, bfs and sssp bit-equal with the compacted scan on and
+    off, ppr and ppr_delta within rtol 1e-5, atol 1e-7, its per-shard scan
+    volumes from the telemetry plane of a run with telemetry on; a (1, 1)
+    mesh bit-equal for all four. Warm queries/s of runs with telemetry off
+    beside run_batch, peak memory. Only the sharded runs' launches count
+    (run_batch, the oracle, runs uncounted), per placement; the replicated
+    runs must have launched ell_combine_batched, the edge-sharded ones
+    segment_reduce and frontier_pack. Returns the counted launches."""
+    from repro_torch.obs import shard_plane, tele_dict
+
+    paths = {"replicated": collections.Counter(), "edge_sharded": collections.Counter()}
+    field = {"bfs": "dist", "sssp": "dist", "ppr": "rank", "ppr_delta": "rank"}
+    make = {k: getattr(A, k) for k in field}
+    rep_mesh = S.make_serving_mesh(SHARD_D, 1, devices=[dev] * SHARD_D)
+    edge_mesh = S.make_serving_mesh(1, SHARD_S, devices=[dev] * SHARD_S)
+    one = S.make_serving_mesh(1, 1, devices=[dev])
+
+    def run(fn, path=None):
+        """(fn(), host seconds); the launches of a sharded run on `path`
+        are counted, the oracle's (path None) are not."""
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter() - t0
+        if path is not None:
+            paths[path].update(ops.launch_counts())
+        return out, t
+
+    reset_peak()
+    resident = torch.cuda.memory_allocated()
+    for name in ("bfs", "sssp", "ppr"):
+        for half in (sources[:SHARD_Q], sources[SHARD_Q:2 * SHARD_Q]):
+            (mb, sb), tb = run(lambda: S.run_batch(make[name](0), g, pack, cfg, half))
+            (ms_, ss), ts = run(lambda: S.run_sharded(make[name](0), g, pack, cfg, rep_mesh,
+                                                      half), "replicated")
+            for k in mb:
+                lanes_equal(f"replicated {name} {k}", ms_[k], mb[k], True)
+            if not torch.equal(ss["mode_trace"], sb["mode_trace"]):
+                raise AssertionError(f"replicated {name}: the mode trace differs")
+        log(f"[11 sharded] (a) replicated ({SHARD_D}, 1) {name} Q={SHARD_Q} x 2: lanes and mode "
+            f"trace bit-equal to run_batch; warm {SHARD_Q / ts:.1f} queries/s against "
+            f"run_batch's {SHARD_Q / tb:.1f}, {int(ss['iterations'])} steps")
+    peak_rep = torch.cuda.max_memory_allocated()
+    q = SHARD_Q_EDGE
+    srcs = sources[:q]
+    reset_peak()
+    for name in ("bfs", "sssp", "ppr", "ppr_delta"):
+        exact = make[name](0).combiner.name != "sum"
+        (mb, sb), tb = run(lambda: S.run_batch(make[name](0), g, pack, cfg, srcs))
+        eng = S.ShardedBatchEngine(make[name](0), g, pack, cfg, edge_mesh,
+                                   placement="edge_sharded", telemetry=True)
+        (me, se), _tt = run(lambda: eng.run(eng.init(srcs)), "edge_sharded")
+        (mo, _so), te = run(lambda: S.run_sharded(make[name](0), g, pack, cfg, edge_mesh, srcs,
+                                                  placement="edge_sharded"), "edge_sharded")
+        for k in mo:
+            lanes_equal(f"edge-sharded {name} telemetry on/off {k}", mo[k], me[k], True)
+        gap = lanes_equal(f"edge-sharded {name}", me[field[name]], mb[field[name]], exact)
+        plane = [int(x) for x in shard_plane(se["tele"].cpu().numpy())]
+        named = tele_dict(se["tele"].cpu().numpy())
+        line = (f"[11 sharded] (a) edge-sharded (1, {SHARD_S}) {name} Q={q}: "
+                + ("bit-equal to run_batch" if exact else f"within {gap:.3g} of run_batch")
+                + f"; warm {q / te:.2f} queries/s (telemetry off) against run_batch's "
+                f"{q / tb:.2f}, "
+                f"{int(se['iterations'])} steps; per-shard scan volumes {plane} (skew "
+                f"{max(plane) / max(sum(plane) / len(plane), 1):.3f}), compact hits "
+                f"{named['compact_hits']}, dense fallbacks {named['compact_dense_fallbacks']}")
+        if name in ("bfs", "sssp"):
+            dense = dataclasses.replace(cfg, shard_compact=False)
+            (md, _sd), td = run(lambda: S.run_sharded(make[name](0), g, pack, dense, edge_mesh,
+                                                      srcs, placement="edge_sharded"),
+                                "edge_sharded")
+            for k in me:
+                lanes_equal(f"edge-sharded {name} compact/dense {k}", me[k], md[k], True)
+            line += f"; the dense scan bit-equal, {q / td:.2f} queries/s"
+        log(line)
+        (m1, s1), _t1 = run(lambda: S.run_sharded(make[name](0), g, pack, cfg, one, srcs),
+                            "replicated")
+        for k in mb:
+            lanes_equal(f"(1, 1) {name} {k}", m1[k], mb[k], True)
+        if not torch.equal(s1["mode_trace"], sb["mode_trace"]):
+            raise AssertionError(f"(1, 1) {name}: the mode trace differs")
+        del eng, me, mo, mb, m1
+    peak_edge = torch.cuda.max_memory_allocated()
+    need = {"replicated": ("ell_combine_batched",),
+            "edge_sharded": ("segment_reduce", "frontier_pack")}
+    for path, names in need.items():
+        if not all(paths[path][k] for k in names):
+            raise AssertionError(f"(a) the {path} runs did not launch {names}: "
+                                 f"{dict(paths[path])}")
+    log(f"[11 sharded] (a) (1, 1) mesh bit-equal to run_batch for bfs, sssp, ppr, ppr_delta "
+        f"(lanes and mode trace); peak device memory replicated {peak_rep / 2**30:.2f} GiB, "
+        f"edge-sharded {peak_edge / 2**30:.2f} GiB ({resident / 2**30:.2f} GiB of the graph "
+        f"and earlier phases resident before); sharded runs' launches "
+        + "; ".join(f"{p} {dict(+c)}" for p, c in paths.items()))
+    torch.cuda.empty_cache()
+    return paths["replicated"] + paths["edge_sharded"]
+
+
+def placed_servers(dev, A, S, ops, g, nz) -> collections.Counter:
+    """(b): two `GraphServer`s with placed pools and streaming updates, each
+    serving SHARD_REQUESTS requests drawn as `stream_graph` draws them (hot
+    0.25, seed 0, nonzero degree) with phase 10's update batch every
+    SHARD_UPDATE_EVERY: bfs, sssp, ppr replicated on a (SHARD_D, 1) mesh at
+    SHARD_Q slots, and bfs, sssp, ppr_delta edge-sharded on a (1, SHARD_S)
+    mesh at SHARD_Q_EDGE slots. Every completion held against `run_batch`
+    on its version's views: bit-equal, ppr_delta by `ResidualCheck`. The
+    replicated server must have launched ell_combine_batched, the
+    edge-sharded one segment_reduce and frontier_pack. Returns the counted
+    launches."""
+    from repro_torch.launch import stream_graph
+
+    counted = collections.Counter()
+    need = {"replicated": ("ell_combine_batched",),
+            "edge_sharded": ("segment_reduce", "frontier_pack")}
+    cfg = S.default_config(g)
+    setups = [("replicated", (SHARD_D, 1), ("bfs", "sssp", "ppr"), SHARD_Q),
+              ("edge_sharded", (1, SHARD_S), ("bfs", "sssp", "ppr_delta"), SHARD_Q_EDGE)]
+    for kind, shape, algos, slots in setups:
+        mesh = S.make_serving_mesh(*shape, devices=[dev] * (shape[0] * shape[1]))
+        n_shards = shape[0] if kind == "replicated" else shape[1]
+        progs = {a: getattr(A, a)(0) for a in algos}
+        reset_peak()
+        srv = S.GraphServer(g, None, progs, slots=slots, cfg=cfg, queue_cap=SERVE_QUEUE_CAP,
+                            cache_capacity=SERVE_CACHE, delta_cap=STREAM_CAP, mesh=mesh,
+                            placements={a: (kind, n_shards) for a in algos})
+        snapshots = {0: (srv.sg.graph, srv.sg.pack, srv.sg.delta)}
+        checked = {"exact": 0}
+        resid = ResidualCheck(srv)
+        mine = collections.Counter()
+
+        def verify(versions):
+            """Hold the completions of `versions` against `run_batch` on
+            that version's views (bit-equal; ppr_delta by `resid`), then
+            drop the views."""
+            for ver in versions:
+                gv, pv, dv = snapshots.pop(ver)
+                for algo, prog in progs.items():
+                    group = [c for c in srv.completions
+                             if c.graph_version == ver and c.algo == algo]
+                    for lo in range(0, len(group), STREAM_Q):
+                        part = group[lo:lo + STREAM_Q]
+                        ref, _ = S.run_batch(prog, gv, pv, cfg, [c.source for c in part],
+                                             delta=dv)
+                        want = ref[srv.pools[algo].result_field][:-1].T.cpu().numpy()
+                        for c, w in zip(part, want):
+                            if algo == "ppr_delta":
+                                resid.hold(c, w, f"{kind} ppr_delta rid {c.rid} v{ver}")
+                            elif not result_bits_equal(c.result, w):
+                                raise AssertionError(f"{kind} {algo} rid {c.rid} v{ver} "
+                                                     "differs from run_batch")
+                            else:
+                                checked["exact"] += 1
+                del gv, pv, dv
+                torch.cuda.empty_cache()
+
+        rng = np.random.default_rng(0)
+        hot = rng.choice(nz, size=max(1, SHARD_REQUESTS // 8))
+        upd, t_verify = [], 0.0
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(SHARD_REQUESTS):
+            algo = algos[i % len(algos)]
+            src = int(rng.choice(hot)) if rng.random() < 0.25 else int(rng.choice(nz))
+            while srv.submit(algo, src) is None:
+                srv.pump()
+            srv.pump()
+            if (i + 1) % SHARD_UPDATE_EVERY == 0:
+                ins, dels = stream_graph.random_update_batch(rng, srv.sg, STREAM_INSERTS,
+                                                             STREAM_DELETES)
+                st, t_u = resid.apply(lambda: timed(lambda: srv.apply_updates(ins, dels)))
+                snapshots[st["version"]] = (srv.sg.graph, srv.sg.pack, srv.sg.delta)
+                upd.append((st, t_u))
+                mine.update(ops.launch_counts())          # bank the stream's launches
+                _, t_v = timed(lambda: verify([v for v in snapshots if v < st["version"]]))
+                t_verify += t_v
+                ops.reset_launches()
+        comps = srv.drain()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0 - t_verify
+        mine.update(ops.launch_counts())
+        if not all(mine[k] for k in need[kind]):
+            raise AssertionError(f"(b) the {kind} server did not launch {need[kind]}: "
+                                 f"{dict(+mine)}")
+        counted.update(mine)
+        peak = torch.cuda.max_memory_allocated()
+        if len(comps) != SHARD_REQUESTS or any(c.result is None for c in comps):
+            raise AssertionError(f"{kind}: {len(comps)} completions of {SHARD_REQUESTS}")
+        verify(list(snapshots))
+        if checked["exact"] + sum(resid.n.values()) != len(comps):
+            raise AssertionError(f"{kind}: {checked} checks for {len(comps)} completions")
+        t_upd = sum(t for _s, t in upd)
+        log(f"[11 sharded] (b) {kind} {shape} pools of {slots} slots ({', '.join(algos)}): "
+            f"{len(comps)} requests in {wall:.3f} s, checks excluded ({len(comps) / wall:.2f} "
+            f"queries/s, {t_upd:.3f} s of it in {len(upd)} apply_updates); "
+            f"{checked['exact']} completions bit-equal to run_batch on their version's views"
+            + (f", {resid.summary()}" if sum(resid.n.values()) else "")
+            + f"; peak device memory {peak / 2**30:.2f} GiB; launches {dict(+mine)}")
+        for st, t_u in upd:
+            log(f"[11 sharded] (b)   update v{st['version']}: apply_updates {t_u:.3f} s, "
+                f"cache refreshed {st['cache_refreshed']}, resumed {st['resumed_inflight']}, "
+                f"re-enqueued {st['reenqueued_inflight']}, shipped {st['shipped']}")
+        stats = srv.stats()
+        log(f"[11 sharded] (b)   shard_delta {stats['shard_delta']}; steps "
+            + ", ".join(f"{a} {stats['pools'][a]['steps']}" for a in algos))
+        del srv, comps, snapshots
+        torch.cuda.empty_cache()
+    return counted
+
+
+def slo_replays(dev, A, S, ops, g, rate: float) -> collections.Counter:
+    """(c): open-loop SLO replay at RMAT-22 through `repro_torch.slo`: an
+    mmpp workload of SLO_SECONDS (burst factor 6) at `rate` queries/s, two
+    tenants ("paid" 0.3, bfs and sssp, deadline SLO_DEADLINE_MS; "batch"
+    0.7, ppr_delta, best effort, hot fraction 0.25), an update batch every
+    SLO_UPDATE_EVERY s, against a single-device server with the full policy
+    after `warmup`, then a (SHARD_D, 1) replicated mesh with the drop half
+    only. Zero crashed lanes; completed + shed + dropped == offered; goodput
+    > 0; the last 8 engine-served completions of each algorithm held
+    against `run_batch` on their version's views. Returns the counted
+    launches."""
+    from repro_torch import slo as SLO
+    from repro_torch.streaming.incremental import is_residual
+
+    counted = collections.Counter()
+    cfg = S.default_config(g)
+    algos = ("bfs", "sssp", "ppr_delta")
+    w = SLO.Workload(
+        arrival="mmpp", rate_qps=rate, duration_s=SLO_SECONDS, burst_factor=6.0, seed=0,
+        update_every_s=SLO_UPDATE_EVERY, update_batch=STREAM_INSERTS,
+        tenants=(SLO.TenantClass("paid", 0.3, (("bfs", 1.0), ("sssp", 1.0)),
+                                 deadline_ms=SLO_DEADLINE_MS),
+                 SLO.TenantClass("batch", 0.7, (("ppr_delta", 1.0),), hot_frac=0.25)))
+    arrivals = SLO.generate(w, g.n_nodes)
+    log(f"[11 sharded] (c) workload {SLO.describe(w)}: "
+        f"{sum(a.kind == 'query' for a in arrivals)} queries, "
+        f"{sum(a.kind == 'update' for a in arrivals)} update batches")
+    for label, mesh in (("one device", None),
+                        (f"({SHARD_D}, 1) replicated mesh",
+                         S.make_serving_mesh(SHARD_D, 1, devices=[dev] * SHARD_D))):
+        progs = {a: getattr(A, a)(0) for a in algos}
+        slots = SERVE_SLOTS
+        policy = S.SLOPolicy(
+            degrade_algos=() if mesh is not None else tuple(
+                a for a, p in progs.items() if is_residual(p) and p.with_tol is not None),
+            degrade_queue_depth=max(2, slots // 2), degrade_slots=max(2, slots // 4),
+            preempt=mesh is None, preempt_slack_s=SLO_DEADLINE_MS / 1e3 / 4,
+            preempt_min_resident_s=SLO_DEADLINE_MS / 1e3 / 4)
+        reset_peak()
+        srv = S.GraphServer(g, None, progs, slots=slots, cfg=cfg, queue_cap=SERVE_QUEUE_CAP,
+                            cache_capacity=SERVE_CACHE, delta_cap=STREAM_CAP,
+                            tenant_weights={"paid": 2.0, "batch": 1.0}, slo=policy,
+                            mesh=mesh, placements=None if mesh is None else {
+                                a: ("replicated", SHARD_D) for a in algos})
+        t0 = time.perf_counter()
+        SLO.warmup(srv, {a: 1 for a in algos})
+        t_warm = time.perf_counter() - t0
+        snapshots = {srv.graph_version: (srv.sg.graph, srv.sg.pack, srv.sg.delta)}
+        applied = []
+        real_apply = srv.apply_updates
+
+        resid = ResidualCheck(srv)
+
+        def apply_and_keep(*a, **k):
+            st, t_u = resid.apply(lambda: timed(lambda: real_apply(*a, **k)))
+            snapshots[st["version"]] = (srv.sg.graph, srv.sg.pack, srv.sg.delta)
+            applied.append(t_u)
+            return st
+
+        srv.apply_updates = apply_and_keep
+        n0 = len(srv.completions)
+        ops.reset_launches()
+        rep = SLO.replay(srv, arrivals, max_wall_s=4 * SLO_SECONDS + 60)
+        counted.update(ops.launch_counts())
+        peak = torch.cuda.max_memory_allocated()
+        if rep.crashed_lanes or rep.completed + rep.shed + rep.dropped != rep.offered:
+            raise AssertionError(f"SLO replay on {label}: {rep}")
+        if not rep.goodput > 0:
+            raise AssertionError(f"SLO replay on {label}: goodput {rep.goodput}")
+        served = [c for c in srv.completions[n0:]
+                  if not (c.from_cache or c.dropped or c.degraded)]
+        checked = 0
+        for algo, prog in progs.items():
+            last = [c for c in served if c.algo == algo][-8:]
+            for c in last:
+                gv, pv, dv = snapshots[c.graph_version]
+                ref, _ = S.run_batch(prog, gv, pv, cfg, [c.source], delta=dv)
+                want = ref[srv.pools[algo].result_field][:-1, 0].cpu().numpy()
+                if algo == "ppr_delta":
+                    resid.hold(c, want, f"SLO {label} ppr_delta rid {c.rid}")
+                elif not result_bits_equal(c.result, want):
+                    raise AssertionError(f"SLO {label} {algo} rid {c.rid} differs from run_batch")
+                checked += 1
+        pct = lambda p: ("-" if p is None else
+                         f"p50 {p['p50_seconds'] * 1e3:.0f} / p95 {p['p95_seconds'] * 1e3:.0f} / "
+                         f"p99 {p['p99_seconds'] * 1e3:.0f} ms (n={p['n']})")
+        log(f"[11 sharded] (c) {label}: offered {rep.offered}, completed {rep.completed}, "
+            f"good {rep.good}, goodput {rep.goodput:.3f}; shed {rep.shed}, dropped "
+            f"{rep.dropped}, degraded {rep.degraded}, preempted {rep.preempted}, deadline "
+            f"missed {rep.deadline_missed}, cache hits {rep.cache_hits}; wall {rep.wall_s:.2f} s "
+            f"for {SLO_SECONDS:.0f} s of arrivals, {len(applied)} updates "
+            f"({sum(applied):.2f} s in apply_updates), crashed lanes {rep.crashed_lanes}; "
+            f"warmup {t_warm:.1f} s; {checked} late completions held against run_batch"
+            f" ({resid.summary()}); peak {peak / 2**30:.2f} GiB")
+        for k, p in list(rep.per_tenant.items()) + list(rep.per_algo.items()):
+            log(f"[11 sharded] (c)   {label} {k}: {pct(p)}")
+        log(f"[11 sharded] (c)   {label} total: {pct(rep.total)}")
+        del srv, snapshots
+        torch.cuda.empty_cache()
+    return counted
+
+
+def launcher_runs(dev, root: Path) -> None:
+    """(d): the launchers on the card at the reference's defaults:
+    `slo_replay --assert-goodput --trace` on one device and with `--mesh
+    4x1 --device cuda:0`, `obs_report` on the trace and
+    `scripts/trace_schema.py` accepting it; `serve_graph --mesh 1x4
+    --placement edge_sharded --verify` and `stream_graph --mesh 4x1
+    --verify` at RMAT-16."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import obs_report, serve_graph, slo_replay, stream_graph
+
+    trace_dir = root / "build" / "smoke"
+    trace_dir.mkdir(parents=True, exist_ok=True)
+
+    def run(tag, fn, args, must):
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = fn(args)
+        for line in out.getvalue().splitlines():
+            log(f"[11 sharded] (d) {line}")
+        if rc != 0 or must not in out.getvalue():
+            raise AssertionError(f"{tag} returned {rc}")
+        log(f"[11 sharded] (d) {tag}: {time.perf_counter() - t0:.1f} s")
+
+    for tag, extra in (("slo_replay", []), ("slo_replay --mesh 4x1",
+                                            ["--mesh", "4x1", "--device", f"cuda:{dev.index or 0}"])):
+        trace = trace_dir / f"slo_trace{len(extra)}.jsonl"
+        run(tag, slo_replay.main, ["--assert-goodput", "--trace", str(trace)] + extra,
+            "smoke gate: goodput>0 and zero crashed lanes -> PASS")
+        run("obs_report", obs_report.main, ["--trace", str(trace)], "== trace:")
+        r = subprocess.run([sys.executable, str(root / "scripts" / "trace_schema.py"), str(trace)],
+                           capture_output=True, text=True, timeout=120)
+        if r.returncode != 0:
+            raise AssertionError(f"trace_schema refused {trace}: {r.stdout} {r.stderr}")
+        log(f"[11 sharded] (d) trace_schema: {r.stdout.strip().splitlines()[-1:]}")
+    run("serve_graph --mesh 1x4", serve_graph.main,
+        ["--graph", "rmat", "--scale", "16", "--mesh", "1x4", "--placement", "edge_sharded",
+         "--device", f"cuda:{dev.index or 0}", "--verify"], "verify: 8/8 OK")
+    run("stream_graph --mesh 4x1", stream_graph.main,
+        ["--graph", "rmat", "--scale", "16", "--mesh", "4x1", "--device",
+         f"cuda:{dev.index or 0}", "--verify"], "verify: 24/24 OK")
+
+
+def sharded_phase(dev, A, S, ops, ell, sr, fp, g, nz, report, rate: float) -> dict:
+    """Phase 11: SLO replay and sharded serving on phase 4's RMAT-22 graph,
+    every mesh a grid of this one card: (k) `hold_sharded_kernels`; (a)
+    `engine_runs`; (b) `placed_servers`; (c) `slo_replays` at `rate`
+    queries/s (phase 9's served rate); (d) `launcher_runs`. Returns the
+    counted launches of (a)-(c)."""
+    from repro_torch.graph import pack_ell
+
+    pack = pack_ell(g.inc)
+    cfg = S.default_config(g)
+    counted = collections.Counter()
+    t0 = time.perf_counter()
+    hold_sharded_kernels(dev, A, S, ell, sr, fp, g, pack, cfg, report)
+    t_k = time.perf_counter()
+    counted.update(engine_runs(dev, A, S, ops, g, pack, cfg, phase_sources(g)))
+    del pack
+    torch.cuda.empty_cache()
+    t_a = time.perf_counter()
+    counted.update(placed_servers(dev, A, S, ops, g, nz))
+    t_b = time.perf_counter()
+    counted.update(slo_replays(dev, A, S, ops, g, rate))
+    t_c = time.perf_counter()
+    launcher_runs(dev, Path(__file__).resolve().parent)
+    kernels = {k: counted[k] for k in ("ell_combine_batched", "segment_reduce", "frontier_pack")}
+    if not all(kernels.values()):
+        raise AssertionError(f"a kernel of the sharded path was not launched: {kernels}")
+    log(f"[11 sharded] launches in (a)-(c): {kernels}; (k) {t_k - t0:.1f} s, (a) "
+        f"{t_a - t_k:.1f} s, (b) {t_b - t_a:.1f} s, (c) {t_c - t_b:.1f} s, (d) "
+        f"{time.perf_counter() - t_c:.1f} s")
+    return kernels
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=22, help="RMAT scale of the main path")
@@ -2777,10 +3383,19 @@ def main() -> int:
     for name, k in streamed.items():
         launches[name] += k
     log(f"[10 streaming] phase {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    # -- phase 11: SLO replay and sharded serving on the RMAT-22 graph -----------
+    t0 = time.perf_counter()
+    sharded = sharded_phase(dev, A, S, ops, ell, sr, fp, g, nz, report,
+                            MEASURED["served_qps"])
+    for name, k in sharded.items():
+        launches[name] += k
+    log(f"[11 sharded] phase {time.perf_counter() - t0:.1f} s")
     del g
     torch.cuda.empty_cache()
 
-    # -- phase 11: report ------------------------------------------------------
+    # -- phase 12: report ------------------------------------------------------
     kernels = []
     for name in _build.KERNELS:
         if launches[name] <= 0:
@@ -2788,7 +3403,7 @@ def main() -> int:
         kernels.append(dict(name=name, route="cuda",
                             source=f"src/repro_torch/csrc/{_build.KERNELS[name]}.cu",
                             launches=launches[name], passed=True, **report[name]))
-    log(f"[11 report] total {time.perf_counter() - t_start:.1f} s, against the 1200 s "
+    log(f"[12 report] total {time.perf_counter() - t_start:.1f} s, against the 1200 s "
         "limit of the chip call")
     log(json.dumps({"kernels": kernels}))
     log(card_line())

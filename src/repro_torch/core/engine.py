@@ -52,10 +52,10 @@ class EngineConfig:
     #: dedupe online-filter output (vote combiners); False reproduces the
     #: paper's redundant-list behaviour
     dedupe_online: bool = True
-    #: read only by the batched serving engine (a later slice)
+    #: read only by the batched serving engine
     masked_pull: bool = False
     masked_pull_frac: float = 0.65
-    #: read only by the edge-sharded engines (a later slice)
+    #: read only by the edge-sharded engine (serving/sharded.py)
     shard_compact: bool = True
     shard_compact_frac: float = 0.25
 

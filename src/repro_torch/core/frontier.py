@@ -87,9 +87,10 @@ def ballot_filter(changed_v: torch.Tensor, cap: int, n_nodes: int) -> Triple:
 
 def select_edges(eactive: torch.Tensor, cap: int) -> Triple:
     """Compact the active lanes of an (E,) edge mask: (safe_ids, lane_ok,
-    overflow); unused lanes clamp to E-1."""
+    overflow); unused lanes clamp to E-1. The compaction is the
+    `frontier_pack` kernel on the card (the edge-sharded scan's)."""
     e = eactive.shape[0]
-    ids, cnt, ovf = compact_mask(eactive, cap, fill=e)
+    ids, cnt, ovf = kops.frontier_pack(eactive.contiguous(), cap)
     safe = torch.clamp(ids, max=e - 1)
     lane_ok = torch.arange(cap, dtype=torch.int32, device=ids.device) < cnt
     return safe, lane_ok, ovf

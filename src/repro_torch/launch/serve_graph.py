@@ -10,8 +10,14 @@ the batched multi-query engine (`repro_torch.serving`).
 
 It runs on the card unless `--device cpu` asks for the CPU. The source
 stream is numpy's `default_rng(--seed)`, as in the reference, so both
-drivers serve the same requests. `--mesh` (sharded pools) is ROADMAP
-queue 1 item 8 and is refused.
+drivers serve the same requests.
+
+`--mesh DxS` serves through sharded pools on a ('data', 'model') mesh
+(DESIGN.md §9): D query shards x S edge shards. `--device cuda` takes D*S
+visible GPUs; a named device (`cuda:0`, `cpu`) holds every shard:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve_graph --mesh 1x4 \
+      --placement edge_sharded --device cuda:0
 """
 
 from __future__ import annotations
@@ -20,12 +26,21 @@ import argparse
 import time
 
 import numpy as np
+import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.graph import generators, pack_ell
 from repro_torch.launch.catalog import algos_argtype, make_catalog
 from repro_torch.obs.trace import add_obs_cli_args, finish_obs_cli, obs_from_cli
-from repro_torch.serving import GraphServer, SLOPolicy, default_config
+from repro_torch.serving import (
+    GraphServer,
+    Placement,
+    SLOPolicy,
+    default_config,
+    make_serving_mesh,
+    query_result,
+    run_batch,
+)
 
 
 def build_graph(kind: str, scale: int, edge_factor: int, seed: int, device):
@@ -38,6 +53,25 @@ def build_graph(kind: str, scale: int, edge_factor: int, seed: int, device):
     if kind == "road":
         return generators.grid2d(1 << (scale // 2), seed=seed, device=device)
     raise ValueError(kind)
+
+
+def parse_mesh(ap, spec: str) -> tuple:
+    """(D, S) of a `--mesh DxS` flag, or an argparse error."""
+    try:
+        d, s = (int(x) for x in spec.lower().split("x"))
+    except ValueError:
+        ap.error(f"--mesh must look like DxS (e.g. 8x1), got {spec!r}")
+    return d, s
+
+
+def device_mesh(d: int, s: int, device: torch.device, tag: str):
+    """The launchers' serving mesh: `cuda` takes D*S visible GPUs (raising
+    when there are fewer); a named device (`cuda:0`, `cpu`) holds every
+    shard, and the launcher says so."""
+    if device.type == "cuda" and device.index is None:
+        return make_serving_mesh(d, s)
+    print(f"[{tag}] mesh {d}x{s}: all {d * s} shards on {device}")
+    return make_serving_mesh(d, s, devices=[device] * (d * s))
 
 
 def main(argv=None):
@@ -59,8 +93,9 @@ def main(argv=None):
                     help="fraction of requests drawn from a small hot source set")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--mesh", default="",
-                    help="sharded pools on a DxS mesh: not ported yet "
-                         "(ROADMAP queue 1 item 8); empty = single-device pools")
+                    help="serve through sharded pools on a DxS ('data' x "
+                         "'model') mesh, e.g. 8x1 (query-sharded) or 1x4 "
+                         "(edge-partitioned); empty = single-device pools")
     ap.add_argument("--placement", default="replicated",
                     choices=("replicated", "edge_sharded"),
                     help="pool placement on the --mesh")
@@ -69,12 +104,15 @@ def main(argv=None):
                     help="attach this latency SLO to every query and drop "
                          "already-expired queued queries (DESIGN.md §13); "
                          "0 = no deadlines")
+    ap.add_argument("--verify", action="store_true",
+                    help="check every completion against a from-scratch "
+                         "single-device run_batch (bit-equal; sum programs "
+                         "of edge-sharded pools within rtol 1e-5, atol 1e-7)")
     ap.add_argument("--device", default="cuda",
-                    help="torch device of the graph and the pools (cuda or cpu)")
+                    help="torch device of the graph and the pools (cuda, cuda:N "
+                         "or cpu); with --mesh, cuda takes D*S GPUs and a "
+                         "named device holds every shard")
     args = ap.parse_args(argv)
-    if args.mesh:
-        ap.error(f"--mesh {args.mesh!r}: sharded pools are not ported yet "
-                 "(ROADMAP queue 1 item 8)")
     dev = resolve_device(args.device)
 
     g = build_graph(args.graph, args.scale, args.edge_factor, args.seed, dev)
@@ -86,10 +124,23 @@ def main(argv=None):
     algos = args.algos                       # validated at argparse time
     programs = {a: catalog[a] for a in algos}
 
+    mesh = None
+    placements = None
+    if args.mesh:
+        d, s = parse_mesh(ap, args.mesh)
+        if args.slots % d:
+            ap.error(f"--slots {args.slots} must divide over {d} query shards")
+        mesh = device_mesh(d, s, dev, "serve_graph")
+        n_shards = d if args.placement == "replicated" else s
+        placements = {a: Placement(args.placement, n_shards) for a in algos}
+        print(f"[serve_graph] sharded pools: mesh {d}x{s}, "
+              f"placement={args.placement}")
+
     deadline_ms = args.deadline_ms if args.deadline_ms > 0 else None
     srv = GraphServer(
         g, pack, programs, slots=args.slots, cfg=default_config(g),
         queue_cap=args.queue_cap, cache_capacity=args.cache_cap,
+        mesh=mesh, placements=placements,
         # pools default each algo's served field from its declared
         # 'result' param — no per-name table needed
         obs=obs_from_cli(args),
@@ -157,7 +208,29 @@ def main(argv=None):
                 else np.array2string(c.result[:4], precision=3))
         print(f"  rid {c.rid} {c.algo}(src={c.source}) iters={c.iterations} "
               f"cache={c.from_cache} result[:4]={head}")
+    if args.verify:
+        return verify(srv, comps, programs, g, pack, "serve_graph")
     return 0
+
+
+def verify(srv, comps, programs, g, pack, tag: str) -> int:
+    """Hold every completion against `run_batch` of its source on one
+    device; prints `verify: N/N OK` and returns 1 on any mismatch."""
+    cfg = default_config(g)
+    bad = 0
+    for c in comps:
+        prog = programs[c.algo]
+        ref, _ = run_batch(prog, g, pack, cfg, [c.source])
+        want = query_result(ref, srv.pools[c.algo].result_field, 0).cpu().numpy()
+        if srv.pools[c.algo].cache_params:
+            ok = np.allclose(c.result, want, rtol=1e-5, atol=1e-7)
+        else:
+            ok = np.array_equal(c.result, want)
+        if not ok:
+            bad += 1
+            print(f"  MISMATCH rid={c.rid} {c.algo}({c.source})")
+    print(f"[{tag}] verify: {len(comps) - bad}/{len(comps)} OK")
+    return 1 if bad else 0
 
 
 if __name__ == "__main__":

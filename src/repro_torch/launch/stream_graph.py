@@ -15,7 +15,12 @@ dirtied in-flight queries.
 It runs on the card unless `--device cpu` asks for the CPU. The request
 stream and the update batches come from numpy's `default_rng(--seed)`, call
 for call as in the reference, so both drivers replay the same trace.
-`--mesh` (sharded pools) is ROADMAP queue 1 item 8 and is refused.
+
+`--mesh DxS` streams through sharded pools (DESIGN.md §9/§11): updates then
+ship only the changed shard rows or views and, with `--placement
+edge_sharded`, exercise the frontier-compacted shard scan and CSR-free
+admission. The mesh takes D*S GPUs under `--device cuda`, or puts every
+shard on a named device (`cuda:0`, `cpu`).
 
 With `--verify`, every completion is checked against a from-scratch run on
 the graph version it was served under: bit-equal, except residual programs,
@@ -31,9 +36,15 @@ import numpy as np
 
 from repro_torch._device import resolve_device
 from repro_torch.launch.catalog import algos_argtype, make_catalog, result_fields
-from repro_torch.launch.serve_graph import build_graph
+from repro_torch.launch.serve_graph import build_graph, device_mesh, parse_mesh
 from repro_torch.obs.trace import add_obs_cli_args, finish_obs_cli, obs_from_cli
-from repro_torch.serving import GraphServer, default_config, query_result, run_batch
+from repro_torch.serving import (
+    GraphServer,
+    Placement,
+    default_config,
+    query_result,
+    run_batch,
+)
 from repro_torch.streaming.incremental import is_residual
 
 
@@ -85,8 +96,9 @@ def main(argv=None):
     ap.add_argument("--verify", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--mesh", default="",
-                    help="sharded pools on a DxS mesh: not ported yet "
-                         "(ROADMAP queue 1 item 8); empty = single-device pools")
+                    help="stream through sharded pools on a DxS ('data' x "
+                         "'model') mesh, e.g. 8x1 or 1x4; empty = "
+                         "single-device pools")
     ap.add_argument("--placement", default="replicated",
                     choices=("replicated", "edge_sharded"),
                     help="pool placement on the --mesh")
@@ -95,11 +107,10 @@ def main(argv=None):
                        "to this path (implies --telemetry); spans carry "
                        "the graph version each request completed on")
     ap.add_argument("--device", default="cuda",
-                    help="torch device of the graph and the pools (cuda or cpu)")
+                    help="torch device of the graph and the pools (cuda, cuda:N "
+                         "or cpu); with --mesh, cuda takes D*S GPUs and a "
+                         "named device holds every shard")
     args = ap.parse_args(argv)
-    if args.mesh:
-        ap.error(f"--mesh {args.mesh!r}: sharded pools are not ported yet "
-                 "(ROADMAP queue 1 item 8)")
     dev = resolve_device(args.device)
 
     g = build_graph(args.graph, args.scale, args.edge_factor, args.seed, dev)
@@ -110,9 +121,22 @@ def main(argv=None):
     algos = args.algos                       # validated at argparse time
     programs = {a: catalog[a] for a in algos}
 
+    mesh = None
+    placements = None
+    if args.mesh:
+        d, s = parse_mesh(ap, args.mesh)
+        if args.slots % d:
+            ap.error(f"--slots {args.slots} must divide over {d} query shards")
+        mesh = device_mesh(d, s, dev, "stream_graph")
+        n_shards = d if args.placement == "replicated" else s
+        placements = {a: Placement(args.placement, n_shards) for a in algos}
+        print(f"[stream_graph] sharded pools: mesh {d}x{s}, "
+              f"placement={args.placement}")
+
     srv = GraphServer(
         g, None, programs, slots=args.slots, cfg=default_config(g),
         cache_capacity=args.cache_cap, delta_cap=args.delta_cap,
+        mesh=mesh, placements=placements,
         # pools default each algo's served field from its declared
         # 'result' param
         obs=obs_from_cli(args),

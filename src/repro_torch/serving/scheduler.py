@@ -67,8 +67,10 @@ program's contract allows), resumes in-flight residual-push lanes from
 corrected residuals and restarts the other dirtied in-flight lanes
 (DESIGN.md §8).
 
-Not ported yet: sharded pools (`mesh`/`placements`; ROADMAP queue 1 item 8)
-raise `NotImplementedError`.
+Sharded pools (`mesh=`, `placements=`, DESIGN.md §9): an algorithm named in
+`placements` runs a `placement.ShardedAlgoPool` on the server's mesh
+(`sharded.make_serving_mesh`) behind the same pool contract; its packed read
+covers every shard, still one a pool step.
 """
 
 from __future__ import annotations
@@ -85,6 +87,7 @@ import torch
 
 from repro_torch.core.acc import ACCProgram
 from repro_torch.core.engine import EngineConfig
+from repro_torch.graph import partition
 from repro_torch.graph.csr import EdgeDelta, Graph, live_degrees
 from repro_torch.graph.packing import EllPack
 from repro_torch.interop import tensor_from_numpy
@@ -107,14 +110,6 @@ from repro_torch.serving import batch_engine as B
 from repro_torch.serving.cache import CachedEntry, ResultCache, make_key, served_result
 from repro_torch.serving.slo import SLOPolicy, degraded_variant
 from repro_torch.streaming import incremental as INC
-
-#: the overlay re-slice counters of the sharded engines
-#: (`repro.graph.partition.SHARD_DELTA_STATS`); zero until ROADMAP queue 1
-#: item 8 ports them
-_SHARD_DELTA_STATS = {"full_reslice": 0, "short_circuit": 0}
-
-_SHARDED = "sharded pools (mesh, placements) are ROADMAP queue 1 item 8"
-
 
 class QueueFull(Exception):
     """Raised by `submit(..., strict=True)` when the request queue is full."""
@@ -271,7 +266,7 @@ class _LanePool:
         The tele block splits by fetched length into the named counters and
         the per-shard scan plane; the same sample also feeds the decision
         audit log."""
-        packed = device_fetch(_pack_pump(self.state))
+        packed = device_fetch(self._pump_sample())
         tele_w = len(packed) - 4 - self.slots
         entry = {
             "step": self.steps,
@@ -314,6 +309,18 @@ class _LanePool:
             "masked_dense_d": int(d[TELE_MASKED_DENSE]),
         })
 
+    def _pump_sample(self) -> torch.Tensor:
+        """The packed telemetry sample of the current state (`_pack_pump`)."""
+        return _pack_pump(self.state)
+
+    def mode_trace(self) -> torch.Tensor:
+        """(S, trace_len) mode trace of every lane."""
+        return self.state.mode_trace
+
+    def meta_fields(self) -> tuple:
+        """The names of the metadata fields the pool's program carries."""
+        return tuple(self.state.m)
+
     # -- lanes -------------------------------------------------------------------
 
     def free_lanes(self) -> List[int]:
@@ -331,10 +338,14 @@ class _LanePool:
             self._set_state(self._step(self.state, gmode))
             self.steps += 1
 
-    def admit(self, lane: int, rid: int, source: int) -> None:
-        assert self.lane_rid[lane] is None
+    def _admit_state(self, lane: int, source: int) -> None:
+        """Write a freshly initialized query into `lane` of the state."""
         self._set_state(_admit_lane(self.program, self.g, self.cfg, self.state,
                                     source, lane, deg=self.live_deg))
+
+    def admit(self, lane: int, rid: int, source: int) -> None:
+        assert self.lane_rid[lane] is None
+        self._admit_state(lane, source)
         self.lane_rid[lane] = rid
         self.lane_admit_step[lane] = self.steps
         self.lane_admit_t[lane] = time.monotonic()
@@ -345,8 +356,7 @@ class _LanePool:
         """Re-initialize a LIVE lane's query from scratch (same rid, same
         lane — the streaming update's restart of a dirtied query)."""
         assert self.lane_rid[lane] is not None
-        self._set_state(_admit_lane(self.program, self.g, self.cfg, self.state,
-                                    source, lane, deg=self.live_deg))
+        self._admit_state(lane, source)
         self.lane_admit_step[lane] = self.steps
         self.lane_admit_t[lane] = time.monotonic()
         self.lane_it_base[lane] = 0
@@ -542,13 +552,18 @@ class AlgoPool(_LanePool):
         self._reset_masked_pull_cache()
 
 
-def _admit_lane(program, g: Graph, cfg, st: B.BatchState, source, lane,
-                deg: torch.Tensor) -> B.BatchState:
+def _admit_lane(program, g, cfg, st: B.BatchState, source, lane,
+                deg: torch.Tensor, check_caps: bool = True,
+                consensus: bool = True) -> B.BatchState:
     """Write one freshly initialized query into lane `lane` (`deg`: the
     graph's live degrees, counted once a pool). The lane's columns of the
     (n+1, S) planes are written in place (a column, not the plane); the
-    per-lane vectors are copied."""
-    one = B.init_batch(program, g, cfg, [int(source)], deg=deg)
+    per-lane vectors are copied.
+
+    `consensus=False` leaves the union volume and gmode to the caller: a
+    sharded pool sets them from every query shard's lanes, and its
+    edge-sharded admission passes a bare `B.GraphDims` as `g` (CSR-free)."""
+    one = B.init_batch(program, g, cfg, [int(source)], deg=deg, check_caps=check_caps)
     for k in st.m:
         st.m[k][:, lane] = one.m[k][:, 0]
     st.active[:, lane] = one.active[:, 0]
@@ -567,6 +582,8 @@ def _admit_lane(program, g: Graph, cfg, st: B.BatchState, source, lane,
     if cfg.masked_pull and st.pull_dense is not None:
         # the new lane has no valid partial cache yet
         st = st._replace(pull_dense=B._full(True, torch.bool, st.done.device))
+    if not consensus:
+        return st
     union_fe, overflow = B._union_volume(g.out, cfg, st.active)
     st = st._replace(union_fe=union_fe, overflow=overflow)
     return st._replace(gmode=B._consensus_mode(program, cfg, g.n_edges, st))
@@ -598,8 +615,6 @@ class GraphServer:
         slo: Optional[SLOPolicy] = None,
         cohort_affinity: Optional[Dict[str, Sequence[int]]] = None,
     ):
-        if mesh is not None or placements:
-            raise NotImplementedError(_SHARDED)
         cfg = cfg or default_config(g)
         self.cfg = cfg
         # one switch for the whole stack (DESIGN.md §12): a trace sink or
@@ -621,6 +636,11 @@ class GraphServer:
         self.graph_version = graph_version
         self.queue_cap = queue_cap
         self.cache = ResultCache(cache_capacity)
+        self.mesh = mesh
+        placements = placements or {}
+        assert not placements or mesh is not None, (
+            "placements require a serving mesh "
+            "(serving.placement.make_serving_mesh)")
         result_fields = result_fields or {}
         # consensus cohorts (DESIGN.md §13): an algorithm's slot budget
         # splits across k leaf pools with INDEPENDENT push/pull consensus,
@@ -633,6 +653,17 @@ class GraphServer:
             s = slots[name] if isinstance(slots, dict) else slots
             k = self.cohorts[name]
             assert k >= 1, (name, k)
+            if name in placements:
+                from repro_torch.serving.placement import ShardedAlgoPool
+
+                assert k == 1, (
+                    "cohorts split a single-device pool; sharded pools "
+                    "isolate via Placement(consensus='local') instead")
+                self.pool_groups[name] = [ShardedAlgoPool(
+                    name, prog, g, pack, cfg, s, mesh, placements[name],
+                    result_field=result_fields.get(name), delta=delta,
+                    telemetry=telemetry)]
+                continue
             assert s % k == 0, (
                 f"slots={s} for {name!r} must divide into {k} cohorts")
             self.pool_groups[name] = [
@@ -856,8 +887,8 @@ class GraphServer:
     def _group_plane(grp: List["AlgoPool"]) -> np.ndarray:
         """A pool group's per-shard scan plane: the latest cumulative plane
         of each cohort leaf, concatenated (sharded groups have one leaf
-        whose plane is the mesh axis — not ported; cohort groups expose
-        per-cohort scan volumes). Empty when telemetry is off or nothing has stepped."""
+        whose plane is the mesh axis; cohort groups expose per-cohort scan
+        volumes). Empty when telemetry is off or nothing has stepped."""
         parts = [np.asarray(q.iter_log[-1]["shard_edges"], np.int64)
                  for q in grp if getattr(q, "iter_log", None)]
         return (np.concatenate(parts) if parts
@@ -1228,7 +1259,7 @@ class GraphServer:
             # per-request per-iteration modes come from the existing
             # mode-trace machinery: ONE matrix transfer per harvest that
             # actually yields lanes (never per lane)
-            mode_rows = device_fetch(pool.state.mode_trace)
+            mode_rows = device_fetch(pool.mode_trace())
         now = time.monotonic()
         for lane, rid, result, iters, extras in harvested:
             pool.observe_resident(now - pool.lane_admit_t[lane])
@@ -1354,8 +1385,9 @@ class GraphServer:
            residuals; the other pools restart their dirtied in-flight lanes
            from scratch on the new graph (clean lanes continue).
 
-        Returns a stats dict (also appended to `self.update_log`); `shipped`
-        is {} (no sharded pools, ROADMAP queue 1 item 8).
+        Returns a stats dict (also appended to `self.update_log`); its
+        `shipped` holds what each sharded pool's view swap moved to its mesh
+        (`ShardedBatchEngine.last_ship`).
         """
         assert self.sg is not None, "GraphServer built without delta_cap"
         assert refresh in ("incremental", "drop")
@@ -1443,9 +1475,12 @@ class GraphServer:
             "reenqueued_inflight": len(re_enqueued_rids),
             "reenqueued_rids": re_enqueued_rids,
             "resumed_inflight": resumed_inflight,
-            # what each sharded pool's view swap moved to its mesh: no
-            # sharded pools here (ROADMAP queue 1 item 8)
-            "shipped": {},
+            # touched-delta slice shipping (DESIGN.md §11): what each
+            # sharded pool's view swap moved to its mesh
+            "shipped": {
+                p.name: dict(p.engine.last_ship)
+                for _n, p, _d in self._leaves() if hasattr(p, "engine")
+            },
         }
         self.update_log.append(stats)
         self._rec("update_swap", version=self.graph_version,
@@ -1546,7 +1581,7 @@ class GraphServer:
                 continue
             reconstructible = (
                 INC.is_monotone(program)
-                and set(pool.state.m.keys()) == {program.primary}
+                and set(pool.meta_fields()) == {program.primary}
                 and pool.result_field == program.primary
             )
             if not reconstructible:
@@ -1575,9 +1610,10 @@ class GraphServer:
                          StreamingGraph.stats() (delta overlay occupancy
                          `delta_fill`, rebuilds) or None for static servers
           updates        count of absorbed update batches
-          last_update    the newest `apply_updates` stats dict, or None
-          shard_delta    the sharded engines' overlay re-slice counters
-                         (full_reslice / short_circuit), zero until item 8
+          last_update    the newest `apply_updates` stats dict (also carries
+                         per-pool `shipped` = engine.last_ship) or None
+          shard_delta    graph.partition.SHARD_DELTA_STATS process counters
+                         (full_reslice / short_circuit overlay re-slices)
           pools          per-algo (cohort groups aggregated: slots and
                          engine_queries summed, steps/tele from the leaves,
                          `cohorts` = leaf count): slots, engine_queries,
@@ -1590,7 +1626,7 @@ class GraphServer:
                          `audit` (push/pull decision-audit summary: logged /
                          push / pull / mode_switches / compact_dense
                          counts, the controller thresholds, and the newest
-                         record); degraded shadow pools appear
+                         record) + `shipped`; degraded shadow pools appear
                          as '<algo>@degraded' entries with a `degraded` flag
           slo            {"enabled": bool, deadline_missed/dropped/degraded/
                          preempted counts (obs.SLO_FIELDS, always live),
@@ -1620,7 +1656,9 @@ class GraphServer:
                 "queued": sum(len(q) for q in self.queues[name].values()),
                 "queue_quota": self.queue_quota[name],
                 "weight": self.weights[name],
-                "placement": "single",
+                "placement": (
+                    p.placement.kind if hasattr(p, "placement") else "single"
+                ),
                 "tenant_queued": {
                     t: len(q) for t, q in self.queues[name].items()
                 },
@@ -1628,6 +1666,8 @@ class GraphServer:
                     t: self.tenant_quota[(name, t)] for t in self.tenants
                 },
             }
+            if hasattr(p, "engine"):
+                d["shipped"] = dict(p.engine.last_ship)
             if self.obs.enabled and any(q.iter_log for q in grp):
                 # cumulative counters sum across cohort leaves; the sample
                 # fields come from the most recently stepped leaf
@@ -1689,7 +1729,7 @@ class GraphServer:
             },
             "updates": len(self.update_log),
             "last_update": self.update_log[-1] if self.update_log else None,
-            "shard_delta": dict(_SHARD_DELTA_STATS),
+            "shard_delta": dict(partition.SHARD_DELTA_STATS),
             "pools": pools,
             "slo": {
                 "enabled": self.slo is not None,

@@ -4,8 +4,7 @@ Port of `repro.serving.slo`, unchanged: the policy is host-side.
 
 The SLO subsystem's policy half (DESIGN.md §13). `GraphServer(slo=...)`
 threads an :class:`SLOPolicy` through the scheduling loop; the load half
-(open-loop workload generation and the replay harness, `repro.slo`) is not
-ported yet (ROADMAP queue 1 item 7).
+(open-loop workload generation and the replay harness) is `repro_torch.slo`.
 
 SIMD-X's just-in-time task management spends GPU cycles only on work that
 still matters; at the serving layer the analogous discipline is spending

@@ -658,10 +658,12 @@ class StreamingGraph:
 
     def delta_shards(self, n_shards: int):
         """Per-shard views of the insertion overlay for edge-partitioned
-        pools: sharded serving is ROADMAP queue 1 item 8."""
-        raise NotImplementedError(
-            "delta_shards serves the edge-sharded pools of ROADMAP queue 1 item 8 "
-            "(multi-device), not ported yet")
+        pools (serving/sharded.py): the (cap,) COO lanes round-robined into
+        (n_shards, ceil(cap/n_shards)) slices, each inserted edge owned by
+        exactly one shard. Shapes depend only on (delta_cap, n_shards)."""
+        from repro_torch.graph.partition import shard_delta
+
+        return shard_delta(self.delta, n_shards, self.n)
 
     # -- reporting -------------------------------------------------------
 

@@ -781,3 +781,99 @@ def test_streaming_server_on_the_card_verifies_every_completion(capsys, cuda):
     assert rc == 0, out
     assert "verify: 16/16 OK" in out and out.count("update v") == 2
     assert "rebuild=True" in out
+
+
+# -- SLO replay and sharded serving ------------------------------------------
+
+
+@pytest.mark.parametrize("q", [1, 8])
+def test_edge_shard_scan_combine_on_the_card(cuda, q):
+    """An edge shard's scan Combine: destinations unsorted (the shard's COO
+    order), `Combiner.segment` sorts them stably and runs the kernel; sums
+    bit-equal to `segment_reduce_ordered` on the sorted order, min and max
+    bit-equal to the plain route on the CPU."""
+    from repro_torch.core.acc import MAX_VOTE, MIN_VOTE, SUM_AGG
+
+    rng = np.random.default_rng(q)
+    e, num = 50_000, 3001
+    dst = torch.from_numpy(rng.integers(0, num + 3, e).astype(np.int32))
+    dst[::7] = num - 1                                   # hot receivers
+    vals = torch.from_numpy(rng.random((e, q)).astype(np.float32))
+    order = torch.sort(dst, stable=True)[1]
+    want = tsr.segment_reduce_ordered(vals[order], dst[order], num, "sum", 0.0)
+    got = SUM_AGG.segment(vals.to(cuda), dst.to(cuda), num)
+    assert torch.equal(_bits(got.cpu()), _bits(want))
+    for comb in (MIN_VOTE, MAX_VOTE):
+        assert torch.equal(_bits(comb.segment(vals.to(cuda), dst.to(cuda), num).cpu()),
+                           _bits(comb.segment(vals, dst, num)))
+
+
+def test_select_edges_on_the_card_equals_the_plain_version(cuda):
+    from repro_torch.core import frontier as F
+
+    rng = np.random.default_rng(3)
+    for e, density, cap in ((100_000, 0.2, 25_000), (100_000, 0.3, 25_000), (4097, 0.5, 128)):
+        mask = torch.from_numpy(rng.random(e) < density)
+        got = F.select_edges(mask.to(cuda), cap)
+        want = F.select_edges(mask, cap)
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b), (e, density)
+
+
+def test_two_by_two_mesh_on_one_card_serves_a_stream_with_an_update(cuda):
+    """A (2, 2) mesh of cuda:0: bfs replicated over the query shards, sssp
+    and ppr_delta edge-sharded, a stream with one update batch in flight;
+    every completion held against `run_batch` on its version's views."""
+    from repro_torch import serving as TSV
+
+    g = G.rmat(10, 8, seed=2, device=cuda)
+    cfg = default_config(g, max_iters=256)
+    mesh = TSV.make_serving_mesh(2, 2, devices=[cuda] * 4)
+    progs = {"bfs": A.bfs(0), "sssp": A.sssp(0), "ppr_delta": A.ppr_delta(0)}
+    srv = TSV.GraphServer(g, None, progs, slots=4, cfg=cfg, cache_capacity=16, delta_cap=32,
+                          result_fields={"ppr_delta": "rank"}, mesh=mesh,
+                          placements={"bfs": ("replicated", 2), "sssp": ("edge_sharded", 2),
+                                      "ppr_delta": ("edge_sharded", 2)})
+    views = {0: (srv.sg.graph, srv.sg.pack, srv.sg.delta)}
+    rng = np.random.default_rng(0)
+    for i in range(18):
+        srv.submit(list(progs)[i % 3], int(rng.integers(0, g.n_nodes)))
+        srv.pump()
+        if i == 8:
+            st = srv.apply_updates(inserts=[(1, 5), (9, 41), (300, 2)],
+                                   deletes=[(int(g.out.src_idx[0]), int(g.out.col_idx[0]))])
+            views[st["version"]] = (srv.sg.graph, srv.sg.pack, srv.sg.delta)
+            assert set(st["shipped"]) == set(progs)
+    comps = srv.drain()
+    assert len(comps) == 18
+    for c in comps:
+        gv, pv, dv = views[c.graph_version]
+        ref, _ = TBE.run_batch(progs[c.algo], gv, pv, cfg, [c.source], delta=dv)
+        want = ref[srv.pools[c.algo].result_field][:-1, 0].cpu().numpy()
+        if c.algo == "ppr_delta":
+            assert np.abs(c.result - want).max() < 1e-3
+        else:
+            assert np.array_equal(c.result.view(np.int32), want.view(np.int32)), c.rid
+
+
+def test_out_of_range_source_served_on_the_card(cuda):
+    """Fault 4 on the card: sources n + 1, n + 100, -1 and -(n + 2) are
+    served as the reference serves them (the write dropped or landing on
+    the scratch row), with no device assert; the context stays usable."""
+    g = G.rmat(8, 8, seed=1, device=cuda)
+    pack = pack_ell(g.inc)
+    n = g.n_nodes
+    cfg = E.EngineConfig(frontier_cap=n, edge_cap=g.n_edges)
+    cpu_g = G.rmat(8, 8, seed=1, device="cpu")
+    cpu_pack = pack_ell(cpu_g.inc)
+    for src in (n + 1, n + 100, -1, -(n + 2)):
+        for name in ("bfs", "sssp", "ppr", "ppr_delta"):
+            m, st = E.run(getattr(A, name)(0), g, pack, cfg, source=src)
+            mc, stc = E.run(getattr(A, name)(0), cpu_g, cpu_pack, cfg, source=src)
+            field = getattr(A, name)(0).param("result", getattr(A, name)(0).primary)
+            assert torch.equal(_bits(m[field].cpu()), _bits(mc[field])), (src, name)
+            assert int(st["iterations"]) == int(stc["iterations"])
+        mb, _ = TBE.run_batch(A.bfs(0), g, pack, default_config(g), [src, 3])
+        assert bool((mb["dist"][:-1, 0] == tell.BIG).all())
+    torch.cuda.synchronize()
+    assert int(torch.ones(1, device=cuda).sum()) == 1

@@ -48,6 +48,11 @@ def test_package_imports_without_jax():
         "from repro_torch import streaming\n"
         "from repro_torch.streaming import delta, incremental\n"
         "from repro_torch.launch import catalog, serve_graph, stream_graph\n"
+        "from repro_torch.launch import slo_replay, obs_report\n"
+        "from repro_torch import mesh, slo\n"
+        "from repro_torch.slo import workload, harness\n"
+        "from repro_torch.graph import partition\n"
+        "from repro_torch.serving import sharded, placement\n"
         "g = generators.rmat(6, 4, seed=1, device='cpu')\n"
         "p = packing.pack_ell(g.inc)\n"
         "m, st = engine.run(algorithms.bfs(0), g, p,\n"
@@ -67,6 +72,16 @@ def test_package_imports_without_jax():
         "ssrv.pump()\n"
         "assert ssrv.apply_updates([(1, 2), (4, 5)], [(0, int(g.out.col_idx[0]))])['version'] == 1\n"
         "assert len(ssrv.drain()) == 3 and ssrv.stats()['graph']['streaming']['version'] == 1\n"
+        "msrv = serving.GraphServer(g, None, catalog.make_catalog(), slots=2, delta_cap=8,\n"
+        "                           mesh=serving.make_serving_mesh(2, 2, devices=['cpu'] * 4),\n"
+        "                           placements={'bfs': ('replicated', 2),\n"
+        "                                       'ppr_delta': ('edge_sharded', 2)})\n"
+        "for a in ('bfs', 'ppr_delta'):\n"
+        "    msrv.submit(a, 3)\n"
+        "msrv.pump()\n"
+        "assert set(msrv.apply_updates([(1, 2)])['shipped']) == {'bfs', 'ppr_delta'}\n"
+        "arr = slo.generate(slo.Workload(rate_qps=200.0, duration_s=0.1), g.n_nodes)\n"
+        "assert slo.replay(msrv, arr).crashed_lanes == 0\n"
         "assert not any(k == 'jax' or k.startswith(('jax.', 'repro.'))\n"
         "               for k, v in sys.modules.items() if v is not None)\n"
     )

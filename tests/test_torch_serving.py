@@ -397,11 +397,21 @@ def test_readmit_restarts_a_live_lane(graphs):
     ({"placements": {"bfs": "edge_sharded"}}, "item 8"),
 ])
 def test_unported_parts_raise(graphs, kw, item):
-    """Only the sharded pools are left (ROADMAP queue 1 item 8); a streaming
-    server (`delta_cap > 0`) is tests/test_torch_stream_serving.py's."""
-    _, _, tg, tp = graphs
-    with pytest.raises(NotImplementedError, match=item):
-        TS.GraphServer(tg, tp, {"bfs": TA.bfs(0)}, slots=2, **kw)
+    """The sharded pools of ROADMAP queue 1 `item` are ported: a mesh
+    without placements serves single-device pools and placements without a
+    mesh are refused, as in the reference; nothing raises
+    NotImplementedError. Placed pools are tests/test_torch_sharded_serving.py's."""
+    jg, jp, tg, tp = graphs
+    outcomes = []
+    for S, A, g, p in ((JS, JA, jg, jp), (TS, TA, tg, tp)):
+        try:
+            srv = S.GraphServer(g, p, {"bfs": A.bfs(0)}, slots=2, **kw)
+        except AssertionError as e:
+            outcomes.append(("refused", "placements require a serving mesh" in str(e)))
+        else:
+            outcomes.append(("built", srv.mesh is kw.get("mesh"),
+                             srv.stats()["pools"]["bfs"]["placement"]))
+    assert outcomes[0] == outcomes[1]
 
 
 def test_apply_updates_raises(graphs):
@@ -446,6 +456,12 @@ def test_serve_graph_cli_defaults_to_the_card():
 
 
 def test_serve_graph_cli_refuses_mesh(capsys):
+    """`--mesh` is ported (ROADMAP queue 1 item 8): the CLI refuses only what
+    the reference's refuses, a malformed mesh and slots that do not divide
+    over the query shards."""
     with pytest.raises(SystemExit):
-        tserve.main(["--mesh", "2x1", "--device", "cpu"])
-    assert "item 8" in capsys.readouterr().err
+        tserve.main(["--mesh", "2by1", "--device", "cpu"])
+    assert "--mesh must look like DxS" in capsys.readouterr().err
+    with pytest.raises(SystemExit):
+        tserve.main(["--mesh", "3x1", "--slots", "4", "--device", "cpu"])
+    assert "must divide over 3 query shards" in capsys.readouterr().err

@@ -374,9 +374,11 @@ def test_stream_graph_cli_defaults_to_the_card_and_refuses_mesh(capsys):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             tstream.main(["--scale", "6", "--requests", "2"])
+    # `--mesh` is ported (ROADMAP queue 1 item 8): only a malformed one is
+    # refused, as in the reference
     with pytest.raises(SystemExit):
-        tstream.main(["--mesh", "1x2", "--device", "cpu"])
-    assert "item 8" in capsys.readouterr().err
+        tstream.main(["--mesh", "1-2", "--device", "cpu"])
+    assert "--mesh must look like DxS" in capsys.readouterr().err
 
 
 def test_random_update_batch_draws_the_reference_batches():

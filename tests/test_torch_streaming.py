@@ -469,9 +469,16 @@ def test_solo_engine_delta_matches_batched_overlay():
 
 
 def test_delta_shards_names_the_multi_device_item():
-    sg = StreamingGraph(tgen.rmat(6, 4, seed=1, device="cpu"), delta_cap=4)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        sg.delta_shards(2)
+    """`delta_shards`, the multi-device item's overlay split (ROADMAP queue 1
+    item 8), equals the reference's round-robin layout."""
+    jg = jgen.rmat(6, 4, seed=1)
+    js, ts = JSG(jg, delta_cap=5), StreamingGraph(tgraph(jg), delta_cap=5)
+    for sg in (js, ts):
+        sg.apply(inserts=[(1, 2), (3, 4), (5, 6)], deletes=[])
+    for k in (1, 2, 3):
+        a, b = js.delta_shards(k), ts.delta_shards(k)
+        for x, y in ((a.src, b.src), (a.dst, b.dst), (a.w, b.w)):
+            np.testing.assert_array_equal(y.numpy(), np.asarray(x))
 
 
 def test_apply_records_a_flight_event(monkeypatch):
