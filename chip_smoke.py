@@ -208,11 +208,40 @@ Phases (any failure exits non-zero; nothing is caught):
                  `obs_report` and `scripts/trace_schema.py` on its trace,
                  `serve_graph --mesh 1x4 --placement edge_sharded --verify`
                  and `stream_graph --mesh 4x1 --verify` at RMAT-16;
- 12. report    — the `kernels` JSON line (all nine kernels, flash as two
+ 12. models    — the model stacks' serving path at the published widths
+                 (`repro_torch.models`, `launch.serve.serve`), each part
+                 counted with the launch counts set to 0 just before it:
+                 (a) granite-3-8b (40 layers, d_model 4096, 32/8 heads, Dh
+                 128, d_ff 12800, vocab 49155 padded to 51200; 8.37 B
+                 parameters, 16.8 GB of bf16 weights drawn on the card from
+                 a seeded generator) serving the reference launcher's
+                 defaults (4 slots, 8 requests, prompt 16, gen 24, max_len
+                 64, seed 0) and one (2, 1024) forward (the flash kernel);
+                 tokens/s, prefill and decode ms, the cache copies, peak
+                 memory; check 1: the last decode step's logits against
+                 `forward` over the same tokens, check 2: the forward
+                 against the same forward with plain attention, both within
+                 LOGITS_REL_ERR in relative norm (and the dense forward no
+                 further than EXACT_RATIO x the plain one from a forward with
+                 float64 attention); (b) granite-moe-1b-a400m (24 layers, 32
+                 experts top 8, Dh 64) the same, its MoE combine on
+                 segment_reduce (checks at capacity factor 8); (c) DeepFM
+                 (39 fields x 100,000 rows x 10, MLP 400-400-400) forward at
+                 B = 512 and 262,144 and user_vector + score_candidates over
+                 1,000,000 candidates (embedding_bag), against the plain
+                 route; (d) gcn-cora and gatedgcn on a 2,708-node uniform
+                 graph (d_feat 1,433), gin-tu and DimeNet on 128 molecules
+                 of 30 nodes / 64 edges (segment_reduce), against the plain
+                 route (rtol 1e-4). Every kernel call of the counted runs
+                 (up to KEEP_CALLS a shape) is then held against its plain
+                 version on its own inputs and each shape timed beside its
+                 bound, plain version and library call;
+ 13. report    — the `kernels` JSON line (all nine kernels, flash as two
                  routes; ell_combine, the batched pull, segment_reduce and
-                 frontier_pack count phases 9, 10 and 11's launches too),
-                 the card line, then the last line
-                 {"ok": true, "device": {...}}.
+                 frontier_pack count phases 9, 10 and 11's launches too,
+                 flash, segment_reduce and embedding_bag phase 12's, which
+                 each kernel's `model_path` lists by shape), the card line,
+                 then the last line {"ok": true, "device": {...}}.
 
 Kernel times are CUDA-event means over a run of calls. Kernels under 0.1 ms
 (frontier_pack, embedding_bag, the segment_reduce merges) and their library
@@ -1609,10 +1638,9 @@ def result_bits_equal(a: np.ndarray, b: np.ndarray) -> bool:
         a.view(np.int32), b.view(np.int32))
 
 
-def profile_pump(srv, top: int = 10) -> None:
-    """torch.profiler over one warm pump round of `srv`: the device-busy
-    share of the round's wall time and the operations that hold the device
-    longest."""
+def profile_once(fn, what: str, top: int = 10) -> None:
+    """torch.profiler over one warm call of `fn`: the device-busy share of
+    its wall time and the operations that hold the device longest."""
     from torch.profiler import ProfilerActivity, profile
 
     def dev_us(e):
@@ -1620,23 +1648,27 @@ def profile_pump(srv, top: int = 10) -> None:
         return v if v is not None else e.self_cuda_time_total
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
-        srv.pump()                                 # profiler start-up, not reported
+        fn()                                       # profiler start-up, not reported
         torch.cuda.synchronize()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        srv.pump()
+        fn()
         torch.cuda.synchronize()
     wall_us = (time.perf_counter() - t0) * 1e6
     ka = [e for e in prof.key_averages()
           if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0]
     busy = sum(dev_us(e) for e in ka)
-    live = {name: sum(r is not None for r in p.lane_rid) for name, p in srv.pools.items()}
-    log(f"[profile] one pump round of bfs, sssp, ppr pools ({live} live lanes): wall "
-        f"{wall_us / 1e3:.1f} ms (profiled), device busy {busy / 1e3:.1f} ms = "
-        f"{100 * busy / wall_us:.1f}%")
+    log(f"[profile] {what}: wall {wall_us / 1e3:.1f} ms (profiled), device busy "
+        f"{busy / 1e3:.1f} ms = {100 * busy / wall_us:.1f}%")
     for e in sorted(ka, key=dev_us, reverse=True)[:top]:
         log(f"[profile]   {dev_us(e) / 1e3:9.2f} ms {e.count:6d}x  {e.key[:90]}")
+
+
+def profile_pump(srv, top: int = 10) -> None:
+    """`profile_once` over one warm pump round of `srv`."""
+    live = {name: sum(r is not None for r in p.lane_rid) for name, p in srv.pools.items()}
+    profile_once(srv.pump, f"one pump round of bfs, sssp, ppr pools ({live} live lanes)", top)
 
 
 def hold_serving_kernels(dev, ell, g, pack, cfg) -> None:
@@ -3038,14 +3070,520 @@ def sharded_phase(dev, A, S, ops, ell, sr, fp, g, nz, report, rate: float) -> di
     return kernels
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the model stacks' serving path at the published widths
+# ---------------------------------------------------------------------------
+
+#: the reference launcher's serving defaults (src/repro/launch/serve.py:37-43)
+LM_SLOTS, LM_REQUESTS, LM_PROMPT, LM_GEN, LM_MAX_LEN, LM_SEED = 4, 8, 16, 24, 64, 0
+#: check 2: the batch and sequence of the forward held flash against plain
+LM_FORWARD = (2, 1024)
+#: bf16 logits of two forwards whose attention differs only by rounding
+#: are far apart: every later bf16 product rounds a difference up to its own
+#: ulp, and a MoE router turns one into another expert. Plain attention
+#: against float64 attention rounded once, in PyTorch on the CPU: 0.8e-2
+#: after one layer and 2.2e-2 after 40 (d_model 512, S 512); 3.5e-2 at
+#: granite-moe-1b-a400m's full width (24 layers, S 512). So logits are held
+#: at 0.1 (a wiring fault moves them by O(1)), and a dense model's flash
+#: forward must come no further from the float64-attention forward than
+#: 1.25 times the plain forward does (`attention_rounded`, which rounds
+#: where the kernel does, came 0.75-0.95 times as far in the same runs; a
+#: MoE's flipped routes make that ratio a draw). Each flash call of the
+#: forward is held on its own inputs at BF16_REL_ERR and ROUNDED_REL_ERR
+LOGITS_REL_ERR = 0.1
+EXACT_RATIO = 1.25
+#: the graph zoo's cells (src/repro/configs/registry.py:24-33)
+GRAPH_CELLS = (("gcn-cora", "full_graph_sm"), ("gatedgcn", "full_graph_sm"),
+               ("gin-tu", "molecule"), ("dimenet", "molecule"))
+MODEL_KERNELS = ("flash_attention", "flash_attention_f32", "segment_reduce", "embedding_bag")
+#: inputs kept a (kernel, shapes) key for the holds after the counted runs
+KEEP_CALLS = 64
+
+
+class Captured:
+    """While `run` runs, each call of the model path's CUDA wrappers
+    (`segment_reduce_cuda`, `embedding_bag_cuda`, `flash_attention_cuda`)
+    goes through as it is (and counts its launch there), and the inputs of
+    up to KEEP_CALLS calls a (kernel, part, shapes, mode) key are kept, so
+    that every kernel is held against its plain version, and timed, on the
+    inputs the path gave it."""
+
+    def __init__(self, sr, bag, fa):
+        self.mods = {"segment_reduce": (sr, "segment_reduce_cuda"),
+                     "embedding_bag": (bag, "embedding_bag_cuda"),
+                     "flash_attention": (fa, "flash_attention_cuda")}
+        self.calls: dict = collections.defaultdict(list)
+        self.count = collections.Counter()
+        self.where = ""
+
+    def _wrap(self, name, fn):
+        def wrapped(*args):
+            key = (name, self.where) + tuple(
+                (tuple(a.shape), str(a.dtype)) if isinstance(a, torch.Tensor) else a
+                for a in args)
+            self.count[key] += 1
+            if len(self.calls[key]) < KEEP_CALLS:
+                self.calls[key].append(args)
+            return fn(*args)
+        return wrapped
+
+    def run(self, where: str, fn):
+        """fn() with the wrappers swapped in, its calls filed under `where`."""
+        saved = {k: getattr(m, a) for k, (m, a) in self.mods.items()}
+        self.where = where
+        for k, (m, a) in self.mods.items():
+            setattr(m, a, self._wrap(k, saved[k]))
+        try:
+            return fn()
+        finally:
+            for k, (m, a) in self.mods.items():
+                setattr(m, a, saved[k])
+
+
+def with_ops(ops, swaps: dict, fn):
+    """fn() with `ops`' functions named in `swaps` replaced (the model
+    forward on a plain route, for the comparisons)."""
+    saved = {k: getattr(ops, k) for k in swaps}
+    for k, f in swaps.items():
+        setattr(ops, k, f)
+    try:
+        return fn()
+    finally:
+        for k, f in saved.items():
+            setattr(ops, k, f)
+
+
+def counted(ops, run, what: str) -> collections.Counter:
+    """Model-path launches of run(), with the counts set to 0 just before."""
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    run()
+    torch.cuda.synchronize()
+    got = collections.Counter({k: v for k, v in ops.launch_counts().items()
+                               if k in MODEL_KERNELS and v})
+    log(f"[12 models] {what}: launches {dict(got)}")
+    return got
+
+
+def tensor_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(tensor_bytes(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(tensor_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
+def lm_phase(dev, name: str, ops, fa, cap: Captured, profile: bool) -> collections.Counter:
+    """(a)/(b): `name` at its published widths in bf16, weights from a seeded
+    generator on the card; the reference launcher's defaults through
+    `launch.serve.serve` and a (2, 1024) forward, counted; then check 1
+    (the last decode step's logits against `forward` over the same tokens)
+    and check 2 (the forward with the flash kernel against the same forward
+    with the plain attention). `profile`: also one decode step under
+    torch.profiler."""
+    from repro_torch import configs
+    from repro_torch.launch import serve as lm
+    from repro_torch.models import transformer as tfm
+    from repro_torch.nn import layers as L
+
+    cfg = configs.get(name).make_config()
+    reset_peak()
+    t0 = time.perf_counter()
+    params = tfm.init_params(cfg, torch.Generator(device=dev).manual_seed(LM_SEED), dev)
+    torch.cuda.synchronize()
+    weights = tensor_bytes(params)
+    log(f"[12 models] {name}: {cfg.param_count() / 1e9:.3f} B parameters by param_count() "
+        f"({cfg.active_param_count() / 1e9:.3f} B active), {weights / 1e9:.2f} GB of bf16 "
+        f"weights materialised in {time.perf_counter() - t0:.1f} s; peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    rng = np.random.default_rng(LM_SEED)
+    prompts = [rng.integers(0, cfg.vocab, size=(1, LM_PROMPT)).astype(np.int32)
+               for _ in range(LM_REQUESTS)]
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, LM_FORWARD).astype(np.int32)).to(dev)
+    lm.serve(cfg, params, prompts[:1], 1, 2, LM_MAX_LEN, dev)     # warm-up
+    out = {}
+
+    def drive():
+        t = time.perf_counter()
+        out["done"], out["steps"] = lm.serve(cfg, params, prompts, LM_SLOTS, LM_GEN,
+                                             LM_MAX_LEN, dev)
+        torch.cuda.synchronize()
+        out["serve_s"] = time.perf_counter() - t
+        out["logits"], _ = tfm.forward(params, tokens, cfg)
+
+    reset_peak()
+    launches = counted(ops, lambda: cap.run(name, drive), f"{name} served + forward")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    done, logits = out["done"], out["logits"]
+    if sorted(r for r, _ in done) != list(range(LM_REQUESTS)) or \
+            any(len(g) != LM_GEN or not all(0 <= t < cfg.padded_vocab for t in g)
+                for _, g in done):
+        raise AssertionError(f"{name}: served {[(r, len(g)) for r, g in done]}")
+    if logits.shape != LM_FORWARD + (cfg.padded_vocab,) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{name}: forward logits {tuple(logits.shape)}, or not finite")
+    n_tok = sum(len(g) for _, g in done)
+
+    # prefill and decode times of one slot (batch 1), and its cache copies
+    cache = tfm.init_cache(cfg, 1, LM_MAX_LEN, device=dev)
+    prompt = torch.from_numpy(prompts[0]).to(dev)
+    prefill_ms = cuda_ms(lambda: tfm.decode_step(params, cache, prompt, cfg), 5, 2)
+    _, cache = tfm.decode_step(params, cache, prompt, cfg)
+    tok = torch.tensor([[done[0][1][0]]], dtype=torch.int32, device=dev)
+    decode_ms = cuda_ms(lambda: tfm.decode_step(params, cache, tok, cfg), 10, 2)
+    new = torch.zeros((1, cfg.n_kv, 1, cfg.dh), dtype=cache["k"].dtype, device=dev)
+    copies_ms = cuda_ms(lambda: [
+        torch.stack([L._cache_update(c[i], new, LM_PROMPT) for i in range(cfg.n_layers)])
+        for c in (cache["k"], cache["v"])], 10, 2)
+    forward_ms = cuda_ms(lambda: tfm.forward(params, tokens, cfg), 3, 1)
+    if profile:
+        profile_once(lambda: tfm.decode_step(params, cache, tok, cfg),
+                     f"one {name} decode step (batch 1, {cache['len']} cached positions)")
+    log(f"[12 models] {name}: {LM_REQUESTS} requests, {n_tok} tokens, {out['steps']} batch "
+        f"steps in {out['serve_s']:.2f} s = {n_tok / out['serve_s']:.1f} tokens/s "
+        f"({LM_SLOTS} slots, prompt {LM_PROMPT}, gen {LM_GEN}, max_len {LM_MAX_LEN}); prefill "
+        f"{prefill_ms:.2f} ms, decode {decode_ms:.2f} ms a token (batch 1), of it the "
+        f"cache copies {copies_ms:.3f} ms; forward B={LM_FORWARD[0]} S={LM_FORWARD[1]} "
+        f"{forward_ms:.1f} ms; peak {peak:.2f} GiB")
+
+    # check 1: the last decode step against forward over the same tokens
+    # (capacity factor 8 for MoE, so that no pair drops in either)
+    ccfg = cfg if cfg.moe is None else dataclasses.replace(
+        cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=8.0))
+    rid, gen = done[0]
+    cache = tfm.init_cache(ccfg, 1, LM_MAX_LEN, device=dev)
+    last, cache = tfm.decode_step(params, cache, torch.from_numpy(prompts[rid]).to(dev), ccfg)
+    for t in gen[:-1]:
+        last, cache = tfm.decode_step(
+            params, cache, torch.tensor([[t]], dtype=torch.int32, device=dev), ccfg)
+    seq = np.concatenate([prompts[rid][0], gen[:-1]])[None].astype(np.int32)
+    full, _ = tfm.forward(params, torch.from_numpy(seq).to(dev), ccfg)
+    c1 = rel_err(last[0, -1], full[0, -1])
+    log(f"[12 models] {name} check 1: the last decode step of request {rid} ({cache['len']} "
+        f"positions) against forward over its tokens: relative norm {c1:.3g} (limit "
+        f"{LOGITS_REL_ERR}), argmax {int(last[0, -1].argmax())} and {int(full[0, -1].argmax())}")
+    if not c1 <= LOGITS_REL_ERR:
+        raise AssertionError(f"{name} check 1: {c1:.3g} > {LOGITS_REL_ERR}")
+
+    # check 2: the forward with the flash kernel against plain attention
+    # (and, for the scale of bf16 noise, both against float64 attention
+    # rounded once); MoE at capacity factor 8 again: a capacity drop turns
+    # a last-bit difference in the router's input into another expert
+    if ccfg is not cfg:
+        logits, _ = tfm.forward(params, tokens, ccfg)
+    plain = with_ops(ops, {"attention": fa.attention_plain},
+                     lambda: tfm.forward(params, tokens, ccfg)[0])
+    exact = with_ops(ops, {"attention": lambda q, k, v, causal: fa.attention_plain(
+        q.double(), k.double(), v.double(), causal).to(q.dtype)},
+        lambda: tfm.forward(params, tokens, ccfg)[0])
+    c2, fe, pe = rel_err(logits, plain), rel_err(logits, exact), rel_err(plain, exact)
+    log(f"[12 models] {name} check 2: forward B={LM_FORWARD[0]} S={LM_FORWARD[1]} with the "
+        f"flash kernel against plain attention: relative norm {c2:.3g} (limit "
+        f"{LOGITS_REL_ERR}); against float64 attention rounded once: flash {fe:.3g}, plain "
+        f"{pe:.3g}{'' if cfg.moe else f' (limit {EXACT_RATIO} x plain)'}")
+    if not (c2 <= LOGITS_REL_ERR and (cfg.moe or fe <= EXACT_RATIO * pe)):
+        raise AssertionError(f"{name} check 2: {c2:.3g} from plain, {fe:.3g} from float64 "
+                             f"attention against plain's {pe:.3g}")
+    MEASURED[name] = dict(tokens_per_s=n_tok / out["serve_s"], prefill_ms=prefill_ms,
+                          decode_ms=decode_ms, cache_copy_ms=copies_ms, forward_ms=forward_ms,
+                          peak_gib=peak, check1_rel=c1, check2_rel=c2, flash_exact_rel=fe,
+                          plain_exact_rel=pe, weights_gb=weights / 1e9)
+    return launches
+
+
+def deepfm_phase(dev, ops, bag, cap: Captured) -> collections.Counter:
+    """(c): DeepFM at its published config: forward at serve_p99 and
+    serve_bulk, user_vector + score_candidates at retrieval_cand, counted;
+    then each against the plain route (rtol 1e-5, atol 1e-6)."""
+    from repro_torch import configs
+    from repro_torch.configs.registry import RECSYS_SHAPES
+    from repro_torch.models import deepfm
+
+    cfg = configs.get("deepfm").make_config()
+    gen = torch.Generator(device=dev).manual_seed(12)
+    params = deepfm.init_params(cfg, gen, dev)
+    batches = [RECSYS_SHAPES[s]["batch"] for s in ("serve_p99", "serve_bulk")]
+    ids = torch.randint(0, cfg.vocab_per_field, (max(batches), cfg.n_fields), device=dev,
+                        generator=gen, dtype=torch.int32)
+    cand = torch.randn(RECSYS_SHAPES["retrieval_cand"]["n_candidates"], cfg.embed_dim,
+                       device=dev, generator=gen)
+    query = ids[:RECSYS_SHAPES["retrieval_cand"]["batch"]]
+    retrieve = lambda: deepfm.score_candidates(deepfm.user_vector(params, query, cfg), cand)
+    plain = {"embedding_bag": bag.embedding_bag_plain}
+    out = {}
+
+    def drive():
+        for b in batches:
+            out[b] = deepfm.forward(params, ids[:b], cfg)
+        out["scores"] = retrieve()
+
+    launches = counted(ops, lambda: cap.run("deepfm", drive), "deepfm")
+    for b in batches:
+        want = with_ops(ops, plain, lambda: deepfm.forward(params, ids[:b], cfg))
+        torch.testing.assert_close(out[b], want, rtol=1e-5, atol=1e-6)
+        ms = cuda_ms(lambda: deepfm.forward(params, ids[:b], cfg), 10, 2)
+        MEASURED[f"deepfm_forward_{b}_ms"] = ms
+        log(f"[12 models] deepfm forward B={b}: {ms:.4f} ms; within rtol 1e-5, atol 1e-6 of "
+            f"the plain route (max abs diff {abs_err(out[b], want):.3g}); logits "
+            f"{tuple(out[b].shape)}")
+    torch.testing.assert_close(out["scores"], with_ops(ops, plain, retrieve),
+                               rtol=1e-5, atol=1e-6)
+    ms = MEASURED["deepfm_retrieval_ms"] = cuda_ms(retrieve, 10, 2)
+    log(f"[12 models] deepfm retrieval: user_vector + score_candidates against "
+        f"{cand.shape[0]} candidates {ms:.4f} ms, within rtol 1e-5 of the plain route; scores "
+        f"{tuple(out['scores'].shape)}")
+    return launches
+
+
+def graph_inputs(dev, arch: str, shape: dict, seed: int):
+    """(forward, params, args, edges, triplets) of `arch` at a GNN cell,
+    its config at the cell's feature width as the reference's dry-run sets
+    it (`repro/launch/steps.py:351`), on a graph from `graph/generators.py`:
+    a uniform random graph of the cell's nodes and edges (undirected) for
+    full_graph_sm, `batched_molecules` for molecule."""
+    from repro_torch import configs
+    from repro_torch.graph import generators as G
+    from repro_torch.models import dimenet, gnn
+
+    spec = configs.get(arch)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if shape["kind"] == "batched":
+        n_graphs = shape["batch"]
+        g = G.batched_molecules(n_graphs, shape["n_nodes"], shape["n_edges"], seed=seed,
+                                device=dev)
+    else:
+        n_graphs = 1
+        g = G.uniform_random(shape["n_nodes"], shape["n_edges"] // 2, seed=seed, device=dev)
+    n = g.n_nodes
+    src, dst, w = g.out.src_idx, g.out.col_idx, g.out.weights
+    gids = torch.arange(n, device=dev, dtype=torch.int32) // (n // n_graphs)
+    if spec.family == "dimenet":
+        cfg = spec.make_config()
+        tkj, tji = (torch.from_numpy(a).to(dev) for a in dimenet.build_triplets(
+            src.cpu().numpy(), dst.cpu().numpy(), n, cfg.t_per_edge))
+        types = torch.randint(0, cfg.d_in, (n,), device=dev, generator=gen)
+        args = (torch.eye(cfg.d_in, device=dev)[types],
+                torch.randn(n, 3, device=dev, generator=gen), src, dst, tkj, tji, cfg, gids,
+                n_graphs)
+        return dimenet.forward, dimenet.init_params(cfg, gen, dev), args, g.n_edges, \
+            int(tkj.shape[0])
+    cfg = dataclasses.replace(spec.make_config(), d_in=shape["d_feat"])
+    feats = torch.randn(n, cfg.d_in, device=dev, generator=gen)
+    return gnn.forward, gnn.init_params(cfg, gen, dev), \
+        (feats, src, dst, w, cfg, gids, n_graphs), g.n_edges, 0
+
+
+def double(x):
+    """Floating tensors of a nest of dicts, lists and tuples in float64."""
+    if isinstance(x, dict):
+        return {k: double(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(double(v) for v in x)
+    return x.double() if isinstance(x, torch.Tensor) and x.is_floating_point() else x
+
+
+#: a graph forward's float32 output on the kernels, in relative norm from
+#: the same forward in float64: within GRAPH_F64_RATIO times the plain
+#: route's float32 distance (sums in another order, amplified through the
+#: layers: DimeNet's six blocks move single outputs of ~500 by 1.5e-4
+#: relative between the two float32 routes), or GRAPH_F64_FLOOR
+GRAPH_F64_RATIO, GRAPH_F64_FLOOR = 2.0, 1e-5
+
+
+def graph_phase(dev, ops, sr, cap: Captured) -> collections.Counter:
+    """(d): the graph zoo at the registry's shapes, counted, then each
+    forward against its plain route, both against the same forward in
+    float64 (GRAPH_F64_RATIO, GRAPH_F64_FLOOR)."""
+    from repro_torch.configs.registry import GNN_SHAPES
+
+    models = {arch: graph_inputs(dev, arch, GNN_SHAPES[cell], seed=20 + i)
+              for i, (arch, cell) in enumerate(GRAPH_CELLS)}
+    out = {}
+
+    def drive():
+        for arch, (fwd, params, args, _, _) in models.items():
+            out[arch] = fwd(params, *args)
+
+    launches = counted(ops, lambda: cap.run("graphs", drive), "graph zoo")
+    for arch, cell in GRAPH_CELLS:
+        fwd, params, args, m, t = models[arch]
+        plain = {"segment_reduce": sr.segment_reduce_plain}
+        want = with_ops(ops, plain, lambda: fwd(params, *args))
+        exact = with_ops(ops, plain, lambda: fwd(double(params), *double(args)))
+        if not bool(torch.isfinite(out[arch]).all()):
+            raise AssertionError(f"{arch}: non-finite output")
+        ek = float((out[arch].double() - exact).norm() / exact.norm())
+        ep = float((want.double() - exact).norm() / exact.norm())
+        ms = MEASURED[f"{arch}_forward_ms"] = cuda_ms(lambda: fwd(params, *args), 5, 2)
+        log(f"[12 models] {arch} at {cell}: n={args[0].shape[0]} edges={m}"
+            f"{f' triplets={t}' if t else ''}, output {tuple(out[arch].shape)}, forward "
+            f"{ms:.3f} ms; from the float64 forward {ek:.3g} in relative norm (plain route "
+            f"{ep:.3g}; limit {GRAPH_F64_RATIO} x plain or {GRAPH_F64_FLOOR}); max |kernel - "
+            f"plain| {abs_err(out[arch], want):.3g}")
+        if not ek <= max(GRAPH_F64_RATIO * ep, GRAPH_F64_FLOOR):
+            raise AssertionError(f"{arch}: {ek:.3g} from float64 against the plain route's "
+                                 f"{ep:.3g}")
+    return launches
+
+
+def hold_call(sr, bag, fa, name: str, args) -> tuple[float, dict]:
+    """One kept call against its kernel's plain version on the same inputs:
+    segment_reduce bit-equal to segment_reduce_ordered, and each sum within
+    L * 2^-24 * sum|v| of the float64 sum over its L rows (the bound of a
+    float32 sum of L terms in any order; the model's values have both signs,
+    so a relative bound would not hold where they cancel); embedding_bag
+    bit-equal to embedding_bag_ordered and within rtol 1e-5 of plain; flash
+    within 5e-2 and BF16_REL_ERR (relative norm) of plain and
+    ROUNDED_REL_ERR of attention_rounded. Returns the largest |kernel -
+    plain| and the sums' largest share of their bound (`bound_share`) or
+    the flash output's relative norm from attention_rounded
+    (`rounded_rel_err`)."""
+    if name == "segment_reduce":
+        vals, ids, num, comb, fill = args
+        a = sr.segment_reduce_cuda(*args)
+        if not bit_equal(a, sr.segment_reduce_ordered(*args)):
+            raise AssertionError("differs from segment_reduce_ordered")
+        v64 = vals.double()
+        exact = sr.segment_reduce_plain(v64, ids, num, comb, fill)
+        mass = sr.segment_reduce_plain(v64.abs(), ids, num, comb, fill)
+        rows = sr.segment_reduce_plain(torch.ones_like(ids, dtype=torch.float64), ids, num)
+        bound = (rows * 2.0 ** -24).reshape((num,) + (1,) * (vals.dim() - 1)) * mass
+        off = (a.double() - exact).abs()
+        if bool((off > bound).any()):
+            raise AssertionError(f"a sum is {float((off - bound).max()):.3g} beyond "
+                                 "L * 2^-24 * sum|v| from float64")
+        share = float((off / bound.clamp_min(1e-300)).max()) if off.numel() else 0.0
+        return abs_err(a, sr.segment_reduce_plain(*args)), {"bound_share": share}
+    if name == "embedding_bag":
+        a = bag.embedding_bag_cuda(*args)
+        if not bit_equal(a, bag.embedding_bag_ordered(*args)):
+            raise AssertionError("differs from embedding_bag_ordered")
+        p = bag.embedding_bag_plain(*args)
+        torch.testing.assert_close(a, p, rtol=1e-5, atol=1e-5)
+        return abs_err(a, p), {}
+    a, p = fa.flash_attention_cuda(*args), fa.attention_plain(*args)
+    torch.testing.assert_close(a.float(), p.float(), rtol=5e-2, atol=5e-2)
+    check_rel("against plain", a, p, fa.BF16_REL_ERR)
+    r = fa.attention_rounded(*args)
+    check_rel("against attention_rounded", a, r, fa.ROUNDED_REL_ERR)
+    return abs_err(a.float(), p.float()), {"rounded_rel_err": rel_err(a, r)}
+
+
+def time_call(sr, bag, fa, name: str, args) -> dict:
+    """A kept call timed on the card beside its bound, its plain version and
+    the library call that computes the same function."""
+    if name == "segment_reduce":
+        vals, ids, num = args[:3]
+        d = vals.shape[1] if vals.dim() == 2 else 1
+        bnd = bound_ms(ids.numel() * 4 + vals.numel() * 4 + num * d * 4, vals.numel())
+        out, ids64, v2 = torch.zeros((num, d), device=vals.device), ids.long(), vals.reshape(-1, d)
+        row = dict(shape=f"E={vals.shape[0]} D={d} num={num} {args[3]}",
+                   ms=graph_ms(lambda: sr.segment_reduce_cuda(*args)),
+                   plain_ms=cuda_ms(lambda: sr.segment_reduce_plain(*args), 3, 1),
+                   library_ms=graph_ms(lambda: out.index_add_(0, ids64, v2)))
+    elif name == "embedding_bag":
+        table, idx, mode = args
+        nrows = int(torch.unique(idx).numel())
+        d = table.shape[1]
+        bnd = bound_ms(nrows * d * 4 + idx.numel() * 4 + idx.shape[0] * d * 4, idx.numel() * d)
+        idx64 = idx.long()
+        row = dict(shape=f"table {tuple(table.shape)}, B={idx.shape[0]} K={idx.shape[1]} "
+                         f"{mode}, {nrows} distinct rows",
+                   ms=graph_ms(lambda: bag.embedding_bag_cuda(*args)),
+                   plain_ms=cuda_ms(lambda: bag.embedding_bag_plain(*args), 3, 1),
+                   library_ms=graph_ms(lambda: F.embedding_bag(idx64, table, mode=mode)))
+    else:
+        q, k, v, causal = args
+        b_, hq, sq, dh = q.shape
+        skv = k.shape[2]
+        pairs = b_ * hq * (sum(min(skv, i + 1 + skv - sq) for i in range(sq)) if causal
+                           else sq * skv)
+        nbytes = (q.numel() * 2 + k.numel() * 2) * q.element_size()
+        peak = BF16_OPS_PER_S if fa.route(q.dtype, dh) == fa.TENSOR_CORES else TF32_OPS_PER_S
+        bnd = bound_ms(nbytes, 4 * pairs * dh * (1 if q.dtype == torch.bfloat16 else 3), peak)
+        group = hq // k.shape[1]
+        kr, vr = k.repeat(1, group, 1, 1), v.repeat(1, group, 1, 1)     # group-major
+        row = dict(shape=f"q {tuple(q.shape)}, kv {tuple(k.shape)}, {q.dtype}, "
+                         f"{'causal' if causal else 'full'}",
+                   ms=cuda_ms(lambda: fa.flash_attention_cuda(*args), 10),
+                   plain_ms=cuda_ms(lambda: fa.attention_plain(*args), 3, 1),
+                   library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                       q, kr, vr, is_causal=causal), 10))
+    row.update(bound_ms=bnd[0], bound_by=bnd[1])
+    return row
+
+
+def hold_model_kernels(sr, bag, fa, cap: Captured, launches, report) -> None:
+    """Every kept call of the counted runs held by `hold_call`, the first of
+    each (kernel, part, shapes) key timed by `time_call`; the rows go under
+    report[kernel]['model_path'] beside the model path's launches."""
+    rows = collections.defaultdict(list)
+    for key, calls in cap.calls.items():
+        name, where = key[:2]
+        worst, most = 0.0, {}
+        for args in calls:
+            try:
+                e, extra = hold_call(sr, bag, fa, name, args)
+            except AssertionError as exc:
+                raise AssertionError(f"{name} in {where}, {key[2:]}: {exc}") from exc
+            worst = max(worst, e)
+            most = {k: max(v, most.get(k, 0.0)) for k, v in extra.items()}
+        row = time_call(sr, bag, fa, name, calls[0])
+        row.update(where=where, launches=cap.count[key], held=len(calls), max_abs_err=worst,
+                   **most)
+        note = "".join(f"; {k} {v:.3g}" for k, v in most.items())
+        if name == "flash_attention":
+            name = fa.route(calls[0][0].dtype, calls[0][0].shape[3])
+        rows[name].append(row)
+        log(f"[12 models] {name} in {where}, {row['shape']}: {row['launches']} launches, "
+            f"{row['held']} held against the plain version (max abs err {worst:.3g}{note}); "
+            f"card {row['ms']:.4f} ms, bound {row['bound_ms']:.4f} by {row['bound_by']}, "
+            f"plain {row['plain_ms']:.4f}, library {row['library_ms']:.4f}")
+    for name in MODEL_KERNELS:
+        report[name]["model_path"] = dict(launches=launches[name], shapes=rows[name])
+        report[name]["max_abs_err"] = max([report[name]["max_abs_err"]]
+                                          + [r["max_abs_err"] for r in rows[name]])
+
+
+def models_phase(dev, ops, sr, bag, fa, report, profile: bool = False) -> dict:
+    """Phase 12: the model stacks' serving path at the published widths:
+    (a) granite-3-8b and (b) granite-moe-1b-a400m served and forwarded in
+    bf16, (c) DeepFM, (d) the graph zoo; each driven path counted, then
+    checked against its plain route, then every kept kernel call held and
+    timed (`hold_model_kernels`). Returns the counted launches."""
+    cap = Captured(sr, bag, fa)
+    launches = collections.Counter()
+    t = [time.perf_counter()]
+    for name in ("granite-3-8b", "granite-moe-1b-a400m"):
+        launches.update(lm_phase(dev, name, ops, fa, cap, profile))
+        reset_peak()
+        t.append(time.perf_counter())
+    launches.update(deepfm_phase(dev, ops, bag, cap))
+    t.append(time.perf_counter())
+    launches.update(graph_phase(dev, ops, sr, cap))
+    t.append(time.perf_counter())
+    for name in ("flash_attention", "segment_reduce", "embedding_bag"):
+        if not launches[name]:
+            raise AssertionError(f"{name} was not launched on the model path: {dict(launches)}")
+    hold_model_kernels(sr, bag, fa, cap, launches, report)
+    del cap
+    reset_peak()
+    log(f"[12 models] launches on the model path {dict(launches)}; (a) {t[1] - t[0]:.1f} s, "
+        f"(b) {t[2] - t[1]:.1f} s, (c) {t[3] - t[2]:.1f} s, (d) {t[4] - t[3]:.1f} s, holds "
+        f"{time.perf_counter() - t[4]:.1f} s")
+    return {k: launches[k] for k in MODEL_KERNELS}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=22, help="RMAT scale of the main path")
     ap.add_argument("--grid", type=int, default=1024, help="grid2d side of phase 5")
     ap.add_argument("--quick", action="store_true", help="stop after phase 3")
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one kernel-pull run of each main-path program "
-                         "and one warm pump round of the serving phase")
+                    help="also profile one kernel-pull run of each main-path program, "
+                         "one warm pump round of the serving phase and one decode step "
+                         "of each LM of the models phase")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -3395,7 +3933,13 @@ def main() -> int:
     del g
     torch.cuda.empty_cache()
 
-    # -- phase 12: report ------------------------------------------------------
+    # -- phase 12: the model stacks' serving path ---------------------------------
+    t0 = time.perf_counter()
+    for name, k in models_phase(dev, ops, sr, bag, fa, report, args.profile).items():
+        launches[name] += k
+    log(f"[12 models] phase {time.perf_counter() - t0:.1f} s")
+
+    # -- phase 13: report ------------------------------------------------------
     kernels = []
     for name in _build.KERNELS:
         if launches[name] <= 0:
@@ -3403,7 +3947,7 @@ def main() -> int:
         kernels.append(dict(name=name, route="cuda",
                             source=f"src/repro_torch/csrc/{_build.KERNELS[name]}.cu",
                             launches=launches[name], passed=True, **report[name]))
-    log(f"[12 report] total {time.perf_counter() - t_start:.1f} s, against the 1200 s "
+    log(f"[13 report] total {time.perf_counter() - t_start:.1f} s, against the 1200 s "
         "limit of the chip call")
     log(json.dumps({"kernels": kernels}))
     log(card_line())

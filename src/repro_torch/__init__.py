@@ -7,6 +7,10 @@ Mirrors the layout of the JAX package `repro` module for module:
                push-pull engine
   kernels/  -- hand-written CUDA kernels (sources in csrc/) with their plain
                PyTorch versions and a device dispatcher
+  nn/, models/, configs/
+            -- transformer layers and MoE, the model stacks' forward and
+               serving paths (transformer, DeepFM, GNNs, DimeNet) and the
+               assigned-architecture registry
   interop   -- numpy arrays of the reference package -> this package's tensors
 
 Entry points that create tensors take `device=` (default "cuda"); a CUDA

@@ -9,6 +9,7 @@ tests to run both packages on one graph, one packing and one initial state.
     p = attn_params_from_numpy({k: np.asarray(v[0]) for k, v in layers.items()})
     st = batch_state_from_numpy({"m": {k: np.asarray(v) for k, v in ref.m.items()},
                                  "it": np.asarray(ref.it), ...}, device="cuda")
+    params = params_from_numpy(jax.tree.map(np.asarray, jax_params), device="cuda")
 """
 
 from __future__ import annotations
@@ -87,6 +88,25 @@ def attn_params_from_numpy(layer: Mapping, device="cuda") -> dict:
     """One layer's attention weights (`wq`, `wk`, `wv`, `wo`, `attn_norm`,
     numpy, dtypes kept) as the dict `nn.layers.gqa_attention` takes."""
     return {k: tensor_from_numpy(layer[k], device) for k in ATTN_FIELDS}
+
+
+def params_from_numpy(tree, device="cuda"):
+    """A model's parameters, nested dicts and lists of numpy arrays (dtypes
+    kept), as the same nesting of tensors. The port's models take the
+    reference's layouts as they are, so this carries the parameters of the
+    transformer (dense and MoE), DeepFM, the GNNs and DimeNet alike."""
+    if isinstance(tree, Mapping):
+        return {k: params_from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [params_from_numpy(v, device) for v in tree]
+    return tensor_from_numpy(tree, device)
+
+
+def cache_from_numpy(cache: Mapping, device="cuda") -> dict:
+    """A transformer kv cache (`k`, `v` numpy, dtypes kept; `len` a
+    scalar) as `models.transformer.decode_step` takes it, `len` an int."""
+    return {"k": tensor_from_numpy(cache["k"], device),
+            "v": tensor_from_numpy(cache["v"], device), "len": int(cache["len"])}
 
 
 def batch_state_from_numpy(arrays: Mapping, device="cuda"):

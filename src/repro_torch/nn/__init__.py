@@ -1,3 +1,4 @@
 """Transformer building blocks of the port (`repro.nn` counterparts):
-`layers` (norm, rotary, SwiGLU, GQA attention, cross-entropy) and
-`chunked_attn` (the long-sequence attention path)."""
+`layers` (norm, rotary, SwiGLU, GQA attention, cross-entropy),
+`chunked_attn` (the long-sequence attention path) and `moe` (sort-based
+top-k MoE)."""

@@ -877,3 +877,134 @@ def test_out_of_range_source_served_on_the_card(cuda):
         assert bool((mb["dist"][:-1, 0] == tell.BIG).all())
     torch.cuda.synchronize()
     assert int(torch.ones(1, device=cuda).sum()) == 1
+
+
+# ---------------------------------------------------------------------------
+# the model stacks: each forward on the card launches its kernels and agrees
+# with the same forward on the CPU (the plain versions)
+# ---------------------------------------------------------------------------
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+@pytest.mark.parametrize("arch,dtype,kernel", [
+    ("granite-3-8b", "float32", "flash_attention_f32"),
+    ("granite-3-8b", "bfloat16", "flash_attention"),
+    ("granite-moe-1b-a400m", "float32", "flash_attention_f32")])
+def test_lm_forward_on_the_card_launches_its_kernels(cuda, arch, dtype, kernel):
+    """The reduced config's forward and one prefill + decode: flash on the
+    forward's attention, segment_reduce on every MoE combine; logits within
+    2e-4 of the CPU's in float32, and in bf16 within 5e-2 in relative norm
+    (each later bf16 product rounds the kernels' last-bit differences up to
+    its own ulp: two bf16 attentions give logits ~1e-2 apart after one
+    layer). The MoE runs in float32, where no gate near a tie flips a route."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import transformer as tfm
+
+    cfg = dataclasses.replace(configs.get(arch).make_reduced(), dtype=dtype)
+    p = tfm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (2, 40))
+                            .astype(np.int32))
+    ops.reset_launches()
+    got, _ = tfm.forward(_to(p, cuda), toks.to(cuda), cfg)
+    counts = ops.launch_counts()
+    assert counts[kernel] == cfg.n_layers
+    assert counts["segment_reduce"] == (cfg.n_layers if cfg.moe else 0)
+    want, _ = tfm.forward(p, toks, cfg)
+    if dtype == "float32":
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=2e-4, atol=2e-4)
+    else:
+        a, b = got.float().cpu(), want.float()
+        assert float((a - b).norm() / b.norm()) <= 5e-2
+    cache = tfm.init_cache(cfg, 2, 48, device=cuda)
+    _, cache = tfm.decode_step(_to(p, cuda), cache, toks[:, :39].to(cuda), cfg)
+    got, _ = tfm.decode_step(_to(p, cuda), cache, toks[:, 39:].to(cuda), cfg)
+    assert cache["len"] == 39 and torch.isfinite(got.float()).all()
+
+
+def test_lm_serve_loop_on_the_card(cuda):
+    """The serve loop at tiny_config (MoE, capacity factor 8 so that no
+    pair drops) on the card: every request gets its tokens; a request's
+    prefill and decodes, teacher-forced on its tokens, give its last token
+    again, and logits within 2e-4 of `forward` over the same tokens."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.launch.train import tiny_config
+    from repro_torch.models import transformer as tfm
+
+    cfg = tiny_config(configs.get("granite-moe-1b-a400m").make_config())
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=8.0))
+    p = tfm.init_params(cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, (1, 16)).astype(np.int32) for _ in range(3)]
+    ops.reset_launches()
+    done, _ = serve.serve(cfg, p, prompts, 2, 6, 32, cuda)
+    assert ops.launch_counts()["segment_reduce"] > 0
+    assert sorted(r for r, _ in done) == [0, 1, 2] and all(len(g) == 6 for _, g in done)
+    rid, gen = done[0]
+    cache = tfm.init_cache(cfg, 1, 32, device=cuda)
+    logits, cache = tfm.decode_step(p, cache, torch.from_numpy(prompts[rid]).to(cuda), cfg)
+    for tok in gen[:-1]:
+        logits, cache = tfm.decode_step(p, cache, torch.tensor([[tok]], dtype=torch.int32,
+                                                               device=cuda), cfg)
+    assert int(logits[0, -1].argmax()) == gen[-1]
+    toks = np.concatenate([prompts[rid][0], gen[:-1]])[None].astype(np.int32)
+    full, _ = tfm.forward(p, torch.from_numpy(toks).to(cuda), cfg)
+    np.testing.assert_allclose(logits[0, -1].cpu().numpy(), full[0, -1].cpu().numpy(),
+                               rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("arch", ["gcn-cora", "gin-tu", "gatedgcn", "dimenet"])
+def test_graph_model_forward_on_the_card_launches_segment_reduce(cuda, arch):
+    from repro_torch import configs
+    from repro_torch.models import dimenet, gnn
+
+    cfg = configs.get(arch).make_reduced()
+    g = G.batched_molecules(8, 30, 64, seed=1, device="cpu")
+    n = g.n_nodes
+    src, dst, w = g.out.src_idx, g.out.col_idx, g.out.weights
+    gids = torch.arange(n, dtype=torch.int32) // 30
+    gen = torch.Generator().manual_seed(0)
+    if arch == "dimenet":
+        tkj, tji = (torch.from_numpy(a) for a in dimenet.build_triplets(
+            src.numpy(), dst.numpy(), n, cap=8))
+        p = dimenet.init_params(cfg, gen, "cpu")
+        args = (torch.eye(cfg.d_in)[torch.arange(n) % cfg.d_in], torch.randn((n, 3), generator=gen),
+                src, dst, tkj, tji, cfg, gids, 8)
+        fwd = dimenet.forward
+    else:
+        p = gnn.init_params(cfg, gen, "cpu")
+        args = (torch.randn((n, cfg.d_in), generator=gen), src, dst, w, cfg, gids, 8)
+        fwd = gnn.forward
+    ops.reset_launches()
+    got = fwd(_to(p, cuda), *(a.to(cuda) if isinstance(a, torch.Tensor) else a for a in args))
+    assert ops.launch_counts()["segment_reduce"] > 0
+    np.testing.assert_allclose(got.cpu().numpy(), fwd(p, *args).numpy(), rtol=1e-4, atol=1e-4)
+
+
+def test_deepfm_on_the_card_launches_embedding_bag(cuda):
+    from repro_torch import configs
+    from repro_torch.models import deepfm
+
+    cfg = configs.get("deepfm").make_reduced()
+    p = deepfm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    ids = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_per_field, (512, cfg.n_fields)).astype(np.int32))
+    ops.reset_launches()
+    got = deepfm.forward(_to(p, cuda), ids.to(cuda), cfg)
+    uv = deepfm.user_vector(_to(p, cuda), ids[:1].to(cuda), cfg)
+    assert ops.launch_counts()["embedding_bag"] == 3
+    np.testing.assert_allclose(got.cpu().numpy(), deepfm.forward(p, ids, cfg).numpy(),
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(uv.cpu().numpy(), deepfm.user_vector(p, ids[:1], cfg).numpy(),
+                               rtol=1e-5, atol=1e-7)

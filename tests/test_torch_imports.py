@@ -53,6 +53,18 @@ def test_package_imports_without_jax():
         "from repro_torch.slo import workload, harness\n"
         "from repro_torch.graph import partition\n"
         "from repro_torch.serving import sharded, placement\n"
+        "import torch\n"
+        "from repro_torch import configs\n"
+        "from repro_torch.configs import registry, lm_archs, gnn_archs\n"
+        "from repro_torch.nn import moe\n"
+        "from repro_torch.models import transformer, deepfm, gnn, dimenet\n"
+        "from repro_torch.launch import serve, train\n"
+        "assert len(configs.cells()) == 40\n"
+        "cfg = train.tiny_config(configs.get('granite-moe-1b-a400m').make_config(),\n"
+        "                        d_model=64, n_layers=1, vocab=64)\n"
+        "tp = transformer.init_params(cfg, torch.Generator().manual_seed(0), 'cpu')\n"
+        "done, _ = serve.serve(cfg, tp, [[[1, 2, 3]]], 1, 2, 8, 'cpu')\n"
+        "assert len(done[0][1]) == 2\n"
         "g = generators.rmat(6, 4, seed=1, device='cpu')\n"
         "p = packing.pack_ell(g.inc)\n"
         "m, st = engine.run(algorithms.bfs(0), g, p,\n"
