@@ -236,12 +236,27 @@ Phases (any failure exits non-zero; nothing is caught):
                  (up to KEEP_CALLS a shape) is then held against its plain
                  version on its own inputs and each shape timed beside its
                  bound, plain version and library call;
- 13. report    — the `kernels` JSON line (all nine kernels, flash as two
+ 13. acclint   — the port's acclint (`repro_torch.launch.acclint`) on the
+                 card, with the launch counts set to 0 just before it: every
+                 backend over the whole catalog at its default scale 6 must
+                 exit 0 with no stale suppression (checked counts, active,
+                 suppressed and stale counts and each backend's seconds
+                 logged; the trace backend runs each engine step under the
+                 sync debug mode and captures it in a CUDA graph, bit-equal
+                 on replay); then the trace backend's solo and batched
+                 entries of bfs, sssp and pagerank on phase 4's RMAT-22
+                 graph (re-packed), none outside the baseline; then
+                 `--fixtures`, which must exit 1 with every rule of the
+                 port's RULES fired (ACC-J102 and J103 among them); the
+                 phase must launch segment_reduce (the combiner probes and
+                 every captured Combine), frontier_pack, ell_combine and
+                 ell_combine_batched;
+ 14. report    — the `kernels` JSON line (all nine kernels, flash as two
                  routes; ell_combine, the batched pull, segment_reduce and
-                 frontier_pack count phases 9, 10 and 11's launches too,
-                 flash, segment_reduce and embedding_bag phase 12's, which
-                 each kernel's `model_path` lists by shape), the card line,
-                 then the last line {"ok": true, "device": {...}}.
+                 frontier_pack count phases 9, 10, 11 and 13's launches
+                 too, flash, segment_reduce and embedding_bag phase 12's,
+                 which each kernel's `model_path` lists by shape), the card
+                 line, then the last line {"ok": true, "device": {...}}.
 
 Kernel times are CUDA-event means over a run of calls. Kernels under 0.1 ms
 (frontier_pack, embedding_bag, the segment_reduce merges) and their library
@@ -261,8 +276,10 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import dataclasses
 import gc
+import io
 import json
 import re
 import subprocess
@@ -3575,6 +3592,88 @@ def models_phase(dev, ops, sr, bag, fa, report, profile: bool = False) -> dict:
     return {k: launches[k] for k in MODEL_KERNELS}
 
 
+# ---------------------------------------------------------------------------
+# phase 13: acclint on the card
+# ---------------------------------------------------------------------------
+
+#: the engine kernels phase 13 launches (combiner probes, captured steps)
+ACCLINT_KERNELS = ("segment_reduce", "frontier_pack", "ell_combine", "ell_combine_batched")
+#: the programs whose solo and batched steps are also checked on phase 4's graph
+ACCLINT_WIDE = ("bfs", "sssp", "pagerank")
+
+
+def acclint_run(acclint, argv: list) -> tuple[int, dict]:
+    """`python -m repro_torch.launch.acclint <argv> --json -` in this
+    process: (exit code, report)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = acclint.run([*argv, "--json", "-"])
+    return rc, json.loads(buf.getvalue())
+
+
+def acclint_phase(dev, ops, g) -> collections.Counter:
+    """Phase 13: acclint on the card (module docstring). Returns the
+    phase's launches of ACCLINT_KERNELS."""
+    from repro_torch.analysis import apply_baseline, load_baseline, trace_check
+    from repro_torch.analysis.findings import BASELINE_PATH, RULES
+    from repro_torch.graph import pack_ell
+    from repro_torch.launch import acclint
+    from repro_torch.launch.catalog import make_catalog
+
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    rc, rep = acclint_run(acclint, ["--device", str(dev)])
+    secs = rep["seconds"]
+    per = secs.pop("trace_entries")
+    log(f"[13 acclint] every backend, scale 6: exit {rc}, checked {rep['checked']}, "
+        f"active {len(rep['findings'])}, suppressed {len(rep['suppressed'])}, "
+        f"stale {len(rep['stale_suppressions'])}; seconds "
+        f"{ {k: round(v, 3) for k, v in secs.items()} } "
+        f"({time.perf_counter() - t0:.1f} s with the graph build)")
+    slow = sorted(per.items(), key=lambda kv: -kv[1])[:5]
+    log(f"[13 acclint] trace entries: {len(per)}, mean {sum(per.values()) / len(per):.4f} s, "
+        f"slowest {[(k, round(v, 4)) for k, v in slow]}")
+    if rc != 0 or rep["findings"] or rep["stale_suppressions"]:
+        raise AssertionError(f"acclint on the card: exit {rc}, active {rep['findings']}, "
+                             f"stale {rep['stale_suppressions']}")
+
+    t0 = time.perf_counter()
+    pack = pack_ell(g.inc)
+    torch.cuda.synchronize()
+    t_pack = time.perf_counter() - t0
+    cat = make_catalog()
+    findings, wide = [], {}
+    for entry, make in trace_check.catalog_entries(
+            {k: cat[k] for k in ACCLINT_WIDE}, sharded=False, device=dev, graph=(g, pack)):
+        if "masked" in entry:
+            continue
+        t1 = time.perf_counter()
+        findings += trace_check.check_step(entry, make)
+        wide[entry] = time.perf_counter() - t1
+    del pack
+    active, suppressed, _stale = apply_baseline(findings, load_baseline(BASELINE_PATH))
+    log(f"[13 acclint] trace backend on phase 4's graph (n={g.n_nodes}, m={g.n_edges}; "
+        f"re-pack {t_pack:.2f} s): {len(wide)} entries, active {len(active)}, "
+        f"suppressed {len(suppressed)}; seconds {[(k, round(v, 4)) for k, v in wide.items()]}")
+    if active:
+        raise AssertionError(f"acclint trace findings at RMAT scale 22: {active}")
+
+    rc, fx = acclint_run(acclint, ["--fixtures", "--device", str(dev)])
+    fired = {f["rule"] for f in fx["findings"]}
+    log(f"[13 acclint] --fixtures: exit {rc}, rules fired {sorted(fired)}")
+    if rc != 1 or fired != set(RULES):
+        raise AssertionError(f"acclint fixtures: exit {rc}, missing {sorted(set(RULES) - fired)}")
+    torch.cuda.synchronize()
+    got = collections.Counter({k: v for k, v in ops.launch_counts().items()
+                               if k in ACCLINT_KERNELS})
+    log(f"[13 acclint] launches {dict(got)}")
+    missing = [k for k in ACCLINT_KERNELS if not got[k]]
+    if missing:
+        raise AssertionError(f"acclint launched no {missing}")
+    return got
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=22, help="RMAT scale of the main path")
@@ -3930,7 +4029,6 @@ def main() -> int:
     for name, k in sharded.items():
         launches[name] += k
     log(f"[11 sharded] phase {time.perf_counter() - t0:.1f} s")
-    del g
     torch.cuda.empty_cache()
 
     # -- phase 12: the model stacks' serving path ---------------------------------
@@ -3939,7 +4037,15 @@ def main() -> int:
         launches[name] += k
     log(f"[12 models] phase {time.perf_counter() - t0:.1f} s")
 
-    # -- phase 13: report ------------------------------------------------------
+    # -- phase 13: acclint on the card --------------------------------------------
+    t0 = time.perf_counter()
+    for name, k in acclint_phase(dev, ops, g).items():
+        launches[name] += k
+    del g
+    torch.cuda.empty_cache()
+    log(f"[13 acclint] phase {time.perf_counter() - t0:.1f} s")
+
+    # -- phase 14: report ------------------------------------------------------
     kernels = []
     for name in _build.KERNELS:
         if launches[name] <= 0:
@@ -3947,7 +4053,7 @@ def main() -> int:
         kernels.append(dict(name=name, route="cuda",
                             source=f"src/repro_torch/csrc/{_build.KERNELS[name]}.cu",
                             launches=launches[name], passed=True, **report[name]))
-    log(f"[13 report] total {time.perf_counter() - t_start:.1f} s, against the 1200 s "
+    log(f"[14 report] total {time.perf_counter() - t_start:.1f} s, against the 1200 s "
         "limit of the chip call")
     log(json.dumps({"kernels": kernels}))
     log(card_line())

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core import frontier as F
 from repro_torch.core.acc import ACCProgram, gather_meta
 from repro_torch.core.engine import (
@@ -43,7 +44,7 @@ from repro_torch.graph.packing import EllPack
 
 def _read(*flags: torch.Tensor) -> list:
     """The one host read per iteration: a packed tensor of flags."""
-    return [bool(x) for x in torch.stack([f.to(torch.int32) for f in flags]).tolist()]
+    return [bool(x) for x in obs.host_flags(torch.stack([f.to(torch.int32) for f in flags]))]
 
 
 def run_filter_ablation(program: ACCProgram, g: Graph, pack: EllPack,

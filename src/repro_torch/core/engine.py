@@ -30,6 +30,7 @@ from typing import Callable, Optional
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core import frontier as F
 from repro_torch.core.acc import ACCProgram, Meta, gather_meta
 from repro_torch.graph.csr import CSR, EdgeDelta, Graph, live_degrees
@@ -81,7 +82,9 @@ class EngineState:
 
 
 def _i32(x, dev) -> torch.Tensor:
-    return torch.tensor(x, dtype=torch.int32, device=dev)
+    """A 0-d int32 device constant, written by a kernel (`torch.tensor`
+    would copy it from the host and wait for the stream)."""
+    return torch.full((), x, dtype=torch.int32, device=dev)
 
 
 # ---------------------------------------------------------------------------
@@ -219,7 +222,9 @@ def _pull_step(program: ACCProgram, pack: EllPack, cfg: EngineConfig,
 
     m_new = program.run_apply(st.m, seg, st.it)
     changed_v = program.active(m_new, st.m, st.it).clone()
-    changed_v[-1] = False
+    # a kernel fill: `changed_v[-1] = False` would copy a host scalar and
+    # wait for the stream
+    changed_v[-1].fill_(False)
     ids, count, ovf = F.ballot_filter(changed_v, cfg.frontier_cap, n)
     fe_next = _frontier_volume(csr_for_deg, ids, count)
     return _advance(st, m_new, ids, count, fe_next, ovf, was_mode=PULL)
@@ -345,7 +350,7 @@ def make_kernel_pull(program: ACCProgram) -> Callable:
 
 def _flags(st: EngineState):
     """The one host read per iteration: (done, mode)."""
-    done, mode = torch.stack([st.done.to(torch.int32), st.mode]).tolist()
+    done, mode = obs.host_flags(torch.stack([st.done.to(torch.int32), st.mode]))
     return bool(done), mode
 
 

@@ -140,6 +140,18 @@ def device_fetch(x) -> np.ndarray:
     return _host(x)
 
 
+def host_flags(x: torch.Tensor) -> list:
+    """The engine's control-flow read: one small packed tensor to a host
+    list. The callers count it in `batch_engine.HOST_READS` by kind."""
+    return x.tolist()
+
+
+def host_copy(x: torch.Tensor) -> np.ndarray:
+    """A plane to the host as a numpy array that owns its memory (a harvested
+    result, a preempted lane, a streaming sweep's set)."""
+    return x.detach().to("cpu", copy=True).numpy()
+
+
 class Observability:
     """One switch, one registry, one trace recorder — what `GraphServer`
     threads through the serving stack. `trace` is a path or writable text

@@ -46,6 +46,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.acc import ACCProgram
 from repro_torch.core.engine import PULL, PUSH, EngineConfig, expand_frontier
 from repro_torch.graph.csr import CSR, EdgeDelta, Graph, live_degrees
@@ -165,7 +166,7 @@ def _apply_and_refilter(program, cfg, csr, st, seg):
     re-aggregate volumes."""
     m_new = program.run_apply(st.m, seg, st.it)
     nxt = program.active(m_new, st.m, st.it).clone()
-    nxt[-1] = False                                  # scratch row stays inert
+    nxt[-1].fill_(False)                             # scratch row stays inert
     nxt &= ~st.done[None, :]                         # done lanes push nothing
     count = nxt.sum(0, dtype=torch.int32)
     union_fe, overflow = _union_volume(csr, cfg, nxt)
@@ -295,7 +296,7 @@ def _pull_step(program: ACCProgram, pack: EllPack, cfg: EngineConfig, st: BatchS
         # the others use the union frontier
         hot_v = (st.hot if st.hot is not None else st.active).any(-1)
         sels = [_masked_rows(s, hot_v, cfg) for s in pack.slices]
-        flags = torch.stack([st.pull_dense] + [x[3] for x in sels]).tolist()
+        flags = obs.host_flags(torch.stack([st.pull_dense] + [x[3] for x in sels]))
         HOST_READS["masked"] += 1
     pseg_new = []
     for si, s in enumerate(pack.slices):
@@ -445,7 +446,7 @@ def init_batch(program: ACCProgram, g, cfg: EngineConfig, sources, done=None,
     if csr_free and deg is None:
         raise ValueError("CSR-free init needs a precomputed live-degree vector")
     if isinstance(sources, torch.Tensor):
-        sources = sources.tolist()
+        sources = obs.host_flags(sources)
     sources = [int(s) for s in sources]
     q = len(sources)
     n = g.n_nodes
@@ -511,8 +512,8 @@ def init_batch(program: ACCProgram, g, cfg: EngineConfig, sources, done=None,
 
 def _loop_flags(st: BatchState) -> tuple[bool, int]:
     """The one host read a iteration of `run_state`: (any lane live, gmode)."""
-    live, gmode = torch.stack([(~st.done).any().to(torch.int32),
-                               st.gmode.to(torch.int32)]).tolist()
+    live, gmode = obs.host_flags(torch.stack([(~st.done).any().to(torch.int32),
+                                              st.gmode.to(torch.int32)]))
     HOST_READS["loop"] += 1
     return bool(live), gmode
 
@@ -521,8 +522,8 @@ def pool_flags(st: BatchState) -> tuple[list, list, int]:
     """The one host read a serving pool makes of a state: (done per lane,
     iterations per lane, gmode), packed into one transfer."""
     q = st.done.shape[0]
-    flat = torch.cat([st.done.to(torch.int32), st.it.to(torch.int32),
-                      st.gmode.to(torch.int32).reshape(1)]).tolist()
+    flat = obs.host_flags(torch.cat([st.done.to(torch.int32), st.it.to(torch.int32),
+                                     st.gmode.to(torch.int32).reshape(1)]))
     HOST_READS["pool"] += 1
     return [bool(x) for x in flat[:q]], flat[q:2 * q], flat[-1]
 

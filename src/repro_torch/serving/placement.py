@@ -34,6 +34,7 @@ from typing import List, Optional
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.acc import ACCProgram
 from repro_torch.core.engine import EngineConfig
 from repro_torch.graph.csr import EdgeDelta, Graph, live_degrees
@@ -211,7 +212,7 @@ class ShardedAlgoPool(_LanePool):
             for f in fields:
                 block = st.m[f].index_select(1, idx)[:-1].T.contiguous()
                 for lane, row in zip(mine, block):
-                    cols[f][lane] = row.to("cpu", copy=True).numpy()
+                    cols[f][lane] = obs.host_copy(row)
         out = []
         for lane in lanes:
             extras = {f: cols[f][lane] for f in self.cache_extra_fields}

@@ -85,6 +85,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.acc import ACCProgram
 from repro_torch.core.engine import EngineConfig
 from repro_torch.graph import partition
@@ -189,14 +190,9 @@ def _put(t: torch.Tensor, lane: int, value) -> torch.Tensor:
     return out
 
 
-def _host_copy(t: torch.Tensor) -> np.ndarray:
-    """`t` as a numpy array that shares no memory with the state."""
-    return t.detach().to("cpu", copy=True).numpy()
-
-
 def _lane_rows(plane: torch.Tensor, n: int) -> list:
     """Each lane's (n,) column of an (n+1, Q) plane as its own host array."""
-    return [row.to("cpu", copy=True).numpy() for row in plane[:n].T.contiguous()]
+    return [obs.host_copy(row) for row in plane[:n].T.contiguous()]
 
 
 def _lane_plane(cols: list, scratch: float, dev: torch.device) -> torch.Tensor:
@@ -384,9 +380,9 @@ class _LanePool:
         assert self.lane_rid[lane] is not None
         st = self.state
         saved = {
-            "planes": {k: _host_copy(st.m[k][:, lane]) for k in st.m},
+            "planes": {k: obs.host_copy(st.m[k][:, lane]) for k in st.m},
             "it": int(self._flags()[1][lane]),
-            "trace": _host_copy(st.mode_trace[lane]),
+            "trace": obs.host_copy(st.mode_trace[lane]),
         }
         st.active[:, lane] = False
         st = st._replace(done=_put(st.done, lane, True),
@@ -449,7 +445,7 @@ class _LanePool:
         live = [lane for lane, rid in enumerate(self.lane_rid) if rid is not None]
         if not live:
             return 0
-        counts = st.count.tolist()
+        counts = obs.host_flags(st.count)
         return sum(counts[lane] > 0 for lane in live)
 
     def _reset_masked_pull_cache(self) -> None:
@@ -489,7 +485,7 @@ class _LanePool:
         cols = {}
         for f in (self.result_field, *self.cache_extra_fields):
             block = self.state.m[f].index_select(1, idx)[:-1].T.contiguous()
-            cols[f] = [row.to("cpu", copy=True).numpy() for row in block]
+            cols[f] = [obs.host_copy(row) for row in block]
         out = []
         for j, lane in enumerate(lanes):
             extras = {f: cols[f][j] for f in self.cache_extra_fields}

@@ -60,6 +60,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.acc import ACCProgram, Combiner
 from repro_torch.core import frontier as F
 from repro_torch.core.engine import PULL, PUSH, EngineConfig
@@ -387,7 +388,7 @@ def _make_edge_sharded_step(program: ACCProgram, cfg: EngineConfig, n: int,
 
         m_new = program.run_apply(st.m, seg, st.it)
         nxt = program.active(m_new, st.m, st.it).clone()
-        nxt[-1] = False
+        nxt[-1].fill_(False)
         nxt &= ~st.done[None, :]
         count = nxt.sum(0, dtype=torch.int32)
         fe, ovf = B._union_volume_deg(deg, cfg, nxt)
@@ -606,7 +607,7 @@ class ShardedBatchEngine:
         if any(p is None or p.shape != t.shape for p, t in zip(prev, new)):
             return set(range(s))
         diff = torch.stack([(t != p).any(1) for t, p in zip(new, prev)]).any(0)
-        return {r for r, c in enumerate(diff.tolist()) if c}
+        return {r for r, c in enumerate(obs.host_flags(diff)) if c}
 
     def _build_shard_view(self, s: int) -> None:
         """Shard s's scan arrays: its base edges then its overlay lanes,
@@ -638,7 +639,7 @@ class ShardedBatchEngine:
         0's decision is the single-device one. Edge-sharded engines init
         CSR-free: the graph's dims and the live-degree vector only."""
         if isinstance(sources, torch.Tensor):
-            sources = sources.tolist()
+            sources = obs.host_flags(sources)
         sources = [int(s) for s in sources]
         assert len(sources) % self.n_query_shards == 0, (
             len(sources), self.n_query_shards)
@@ -707,7 +708,7 @@ class ShardedBatchEngine:
                  + [r.it.to(torch.int32).to(dev) for r in rows]
                  + [torch.stack([r.gmode.to(torch.int32).to(dev) for r in rows])]
                  + [f.to(torch.int32) for f in plan_flags])
-        flat = torch.cat(parts).tolist()
+        flat = obs.host_flags(torch.cat(parts))
         done = [bool(x) for x in flat[:q]]
         its = flat[q:2 * q]
         d = len(rows)

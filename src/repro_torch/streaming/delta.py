@@ -39,6 +39,7 @@ from typing import Iterable, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.graph.csr import CSR, Graph, delta_from_edges, from_edges
 from repro_torch.graph.packing import (
     DEFAULT_BUCKETS,
@@ -116,21 +117,21 @@ def _reach_fixpoint_device(src_e: torch.Tensor, dst_e: torch.Tensor,
     """Device counterpart of :func:`_reach`: all seeds expand together over
     the (src, dst) edge list plus the extra COO edges, every edge every
     level, to the fixpoint. A level is one int32 gather of `reach` at the
-    senders and one int32 scatter-add at the receivers: a receiver is
-    reached iff its count of reached senders is > 0, the OR that the
-    reference's scatter-max takes, and integer adds are order-free, so the
-    set equals the host sweep's. One host read a level (`any` changed).
+    senders and one int32 scatter-max at the receivers, the reference's
+    scatter-max: a receiver is reached iff a reached sender points at it (an
+    OR, order-free), so the set equals the host sweep's. One host read a
+    level (`any` changed).
     The reference's `lax.while_loop` needs a static extra-COO pad of
     `delta_cap` lanes; torch does not, so the extras are the pending
     insertions as they are."""
     reach = seed
     while True:
         hop = torch.zeros_like(reach)
-        hop.index_add_(0, dst_e, reach.index_select(0, src_e))
+        hop.index_reduce_(0, dst_e, reach.index_select(0, src_e), "amax")
         if xsrc.numel():
-            hop.index_add_(0, xdst, reach.index_select(0, xsrc))
+            hop.index_reduce_(0, xdst, reach.index_select(0, xsrc), "amax")
         hop[-1] = 0
-        new = torch.maximum(reach, (hop > 0).to(reach.dtype))
+        new = torch.maximum(reach, hop)
         changed = bool((new != reach).any())
         reach = new
         if not changed:
@@ -222,13 +223,13 @@ class StreamingGraph:
     def _install_base(self, g: Graph) -> None:
         self._base = g
         # host copies for `_find_edges` and the host sweep
-        self._out_rp = g.out.row_ptr.cpu().numpy()
-        self._out_ci = g.out.col_idx.cpu().numpy()
+        self._out_rp = obs.host_copy(g.out.row_ptr)
+        self._out_ci = obs.host_copy(g.out.col_idx)
         if g.inc is g.out:
             self._inc_rp, self._inc_ci = self._out_rp, self._out_ci
         else:
-            self._inc_rp = g.inc.row_ptr.cpu().numpy()
-            self._inc_ci = g.inc.col_idx.cpu().numpy()
+            self._inc_rp = obs.host_copy(g.inc.row_ptr)
+            self._inc_ci = obs.host_copy(g.inc.col_idx)
         # the update log: deleted base out-edge positions
         self._dead_pos_out: set = set()
         # deletions not yet written into the views: out/inc CSR positions,
@@ -273,7 +274,7 @@ class StreamingGraph:
         if self._new_dead_slots:
             idx = torch.tensor(self._new_dead_slots, dtype=torch.long,
                                device=self.device)
-            where = self._pack_pos[idx].cpu().numpy()            # (k, 3): one read
+            where = obs.host_copy(self._pack_pos[idx])           # (k, 3): one read
             self._new_dead_slots = []
             for si in np.unique(where[:, 0]):
                 if si < 0:
@@ -532,7 +533,7 @@ class StreamingGraph:
         reach = _reach_fixpoint_device(
             src_e, dst_e, torch.from_numpy(xs.astype(np.int32)).to(self.device),
             torch.from_numpy(xd.astype(np.int32)).to(self.device), self.n, seed)
-        return reach[:self.n].bool().cpu().numpy()
+        return obs.host_copy(reach[:self.n].bool())
 
     # -- helpers ---------------------------------------------------------
 
@@ -640,8 +641,8 @@ class StreamingGraph:
 
     def _boundary_of(self, affected: np.ndarray) -> np.ndarray:
         """Clean vertices with a LIVE out-edge into the affected region: one
-        pass over the base edges on the device (a count of qualifying edges
-        a sender, > 0 marks it), the pending insertions on the host."""
+        pass over the base edges on the device (a scatter-max of qualifying
+        edges a sender marks it), the pending insertions on the host."""
         if not affected.any():
             return np.zeros(0, dtype=np.int64)
         n = self.n
@@ -650,8 +651,8 @@ class StreamingGraph:
         sel = (aff.index_select(0, out.col_idx) & ~aff.index_select(0, out.src_idx)
                & self._live_mask())
         hits = torch.zeros(n, dtype=torch.int32, device=self.device)
-        hits.index_add_(0, out.src_idx, sel.to(torch.int32))
-        base = np.flatnonzero(hits.cpu().numpy() > 0).astype(np.int64)
+        hits.index_reduce_(0, out.src_idx, sel.to(torch.int32), "amax")
+        base = np.flatnonzero(obs.host_copy(hits) > 0).astype(np.int64)
         xsrc, xdst = self._ins_coo()
         extra = xsrc[affected[xdst] & ~affected[xsrc]]
         return np.union1d(base, extra)

@@ -50,6 +50,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import frontier as F
 from repro_torch.core.acc import ACCProgram
 from repro_torch.core.engine import EngineConfig
@@ -162,7 +163,7 @@ def residual_correct(program: ACCProgram, sg, prev_m: dict,
     term_tgt: list = []
     term_val: list = []
     if changed:
-        rows = rank[torch.tensor(changed, dtype=torch.long, device=dev)].cpu().numpy()
+        rows = obs.host_copy(rank[torch.tensor(changed, dtype=torch.long, device=dev)])
     for i, u in enumerate(changed):
         # neighbor MULTISETS: parallel edges each carried one push of
         # d·x/deg, so multiplicity weights the terms — the old multiset is
@@ -174,11 +175,11 @@ def residual_correct(program: ACCProgram, sg, prev_m: dict,
         ins_v = np.asarray(ins_by_src.get(u, ()), np.int64)
         del_v = np.asarray(del_by_src.get(u, ()), np.int64)
         keys = np.unique(np.concatenate([new_nbrs, ins_v, del_v]))
-        cnt = np.zeros(keys.size, np.int64)
-        np.add.at(cnt, np.searchsorted(keys, new_nbrs), 1)
-        old_cnt = cnt.copy()
-        np.add.at(old_cnt, np.searchsorted(keys, ins_v), -1)
-        np.add.at(old_cnt, np.searchsorted(keys, del_v), 1)
+        # integer counts by bincount (the reference's; never np.add.at)
+        k = keys.size
+        cnt = np.bincount(np.searchsorted(keys, new_nbrs), minlength=k)
+        old_cnt = (cnt - np.bincount(np.searchsorted(keys, ins_v), minlength=k)
+                   + np.bincount(np.searchsorted(keys, del_v), minlength=k))
         old_deg = int(old_cnt.sum())
         x_u = rows[i] / settle                               # (Q,)
         if old_deg > 0:
@@ -250,6 +251,17 @@ def _seed_state(program, sg, cfg, sources, prev_m, report) -> B.BatchState:
     return _finish_seed(program, g, cfg, st, m, active)
 
 
+def _sum_by_target(dst: torch.Tensor, vals: torch.Tensor, n: int) -> torch.Tensor:
+    """(n, Q) int32 sums of the integer rows `vals` (E, Q) at their targets
+    `dst` (E,) in [0, n): a stable sort by target, inclusive prefix sums,
+    differenced at each target's bounds (exact: a sum is at most E)."""
+    sd, order = torch.sort(dst, stable=True)
+    cum = torch.cumsum(vals[order], 0, dtype=torch.int32)
+    cum = torch.cat([cum.new_zeros((1,) + tuple(cum.shape[1:])), cum])
+    bounds = torch.searchsorted(sd, torch.arange(n + 1, dtype=sd.dtype, device=sd.device))
+    return cum[bounds[1:]] - cum[bounds[:-1]]
+
+
 def _cascade_seed_state(program, sg, cfg, sources, prev_m,
                         report) -> B.BatchState:
     """Resume a deletion cascade (params incremental='cascade', k-core) from
@@ -262,8 +274,10 @@ def _cascade_seed_state(program, sg, cfg, sources, prev_m,
 
         deg(x) = live_out_deg'(x) − #{live edges w→x : w previously dead}
 
-    The dead-predecessor counts are integer adds on the device (exact in any
-    order, so no pinned order is needed; an (E, Q) int32 plane). The resume
+    The dead-predecessor counts are integer sums on the device, a stable
+    sort by target then prefix sums differenced at each target's bounds
+    (`_sum_by_target`: the reference's sort-then-reduce order, never an
+    unordered scatter-add). The resume
     frontier is the survivor set the deletions pushed below k; deaths are
     confluent, so the fixpoint is BIT-IDENTICAL to a cold run.
     """
@@ -275,9 +289,7 @@ def _cascade_seed_state(program, sg, cfg, sources, prev_m,
     q = st.active.shape[1]
     alive_prev = _tensor(prev_m["alive"], dev).to(torch.float32)[:n] > 0   # (n, Q)
     src, dst = sg.live_edges_coo()
-    dead_in = torch.zeros((n, q), dtype=torch.int32, device=dev)
-    if dst.numel():
-        dead_in.index_add_(0, dst, (~alive_prev[src]).to(torch.int32))
+    dead_in = _sum_by_target(dst, (~alive_prev[src]).to(torch.int32), n)
     dead_in = dead_in.to(torch.float32)
     del src, dst
     live_out = torch.from_numpy(

@@ -1008,3 +1008,73 @@ def test_deepfm_on_the_card_launches_embedding_bag(cuda):
                                rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(uv.cpu().numpy(), deepfm.user_vector(p, ids[:1], cfg).numpy(),
                                rtol=1e-5, atol=1e-7)
+
+
+# ---------------------------------------------------------------------------
+# acclint on the card: the trace backend and the combiner probes
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name", ["bfs", "pagerank"])
+def test_acclint_trace_backend_clean_on_the_card(cuda, name):
+    """Every engine step of the program (solo, batched, sharded) runs
+    without a sync and replays from a CUDA graph bit for bit; only the
+    baselined masked pull reports."""
+    from repro_torch.analysis import apply_baseline, load_baseline, trace_check
+    from repro_torch.analysis.findings import BASELINE_PATH
+    from repro_torch.launch.catalog import make_catalog
+
+    fs, n = trace_check.check_catalog({name: make_catalog()[name]}, device=cuda)
+    assert n >= 5
+    active, suppressed, _stale = apply_baseline(fs, load_baseline(BASELINE_PATH))
+    assert active == [], active
+    assert {f.path for f in suppressed} <= {f"trace:{name}/batched_masked_pull"}
+
+
+@pytest.mark.parametrize("which,rules", [("item", {"ACC-J102", "ACC-J103"}),
+                                         ("nonzero", {"ACC-J102", "ACC-J103"})])
+def test_acclint_trace_fixtures_fire_on_the_card(cuda, which, rules):
+    from repro_torch.analysis import fixtures, trace_check
+
+    make = dict(fixtures.trace_fixtures(cuda))[f"fixture:trace/{which}"]
+    fs = trace_check.check_step(f"fixture:trace/{which}", make)
+    assert {f.rule for f in fs} == rules, fs
+    # a failed capture leaves the next one working
+    clean = trace_check.check_step(
+        "clean", lambda: (lambda s: torch.cumsum(s * 2, 0), torch.ones(8, device=cuda)))
+    assert clean == []
+
+
+def test_acclint_combiner_probes_on_the_card_bit_equal_to_the_cpu(cuda):
+    """The C403 reductions run segment_reduce on the card: bit-equal to the
+    same probes on the CPU, and the probes find nothing."""
+    from repro_torch.analysis import combiner_check
+
+    ops.reset_launches()
+    for comb in combiner_check.registered_combiners():
+        a = combiner_check.probe_values(comb, cuda)
+        b = combiner_check.probe_values(comb, "cpu")
+        for k in a:
+            assert torch.equal(_bits(a[k].cpu()), _bits(b[k])), (comb, k)
+        assert combiner_check.check_combiner(comb, cuda) == []
+    assert ops.launch_counts()["segment_reduce"] > 0
+
+
+def test_acclint_trace_flags_a_host_scalar_write(cuda):
+    """`x[-1] = False` on a CUDA tensor copies a host scalar and waits for
+    the stream (the engine steps write `x[-1].fill_(False)` instead)."""
+    from repro_torch.analysis import trace_check
+
+    def write(s):
+        y = s.clone()
+        y[-1] = False
+        return y
+
+    def fill(s):
+        y = s.clone()
+        y[-1].fill_(False)
+        return y
+
+    mask = torch.ones(16, dtype=torch.bool, device=cuda)
+    assert "ACC-J102" in {f.rule for f in trace_check.check_step("write", lambda: (write, mask))}
+    assert trace_check.check_step("fill", lambda: (fill, mask)) == []

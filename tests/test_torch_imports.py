@@ -53,6 +53,11 @@ def test_package_imports_without_jax():
         "from repro_torch.slo import workload, harness\n"
         "from repro_torch.graph import partition\n"
         "from repro_torch.serving import sharded, placement\n"
+        "from repro_torch import analysis\n"
+        "from repro_torch.analysis import ast_lint, combiner_check, fixtures, findings\n"
+        "from repro_torch.analysis import meta_check, trace_check\n"
+        "from repro_torch.launch import acclint\n"
+        "assert acclint.run(['--device', 'cpu', '--backends', 'ast,combiner']) == 0\n"
         "import torch\n"
         "from repro_torch import configs\n"
         "from repro_torch.configs import registry, lm_archs, gnn_archs\n"
