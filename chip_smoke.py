@@ -251,12 +251,46 @@ Phases (any failure exits non-zero; nothing is caught):
                  phase must launch segment_reduce (the combiner probes and
                  every captured Combine), frontier_pack, ell_combine and
                  ell_combine_batched;
- 14. report    — the `kernels` JSON line (all nine kernels, flash as two
-                 routes; ell_combine, the batched pull, segment_reduce and
-                 frontier_pack count phases 9, 10, 11 and 13's launches
-                 too, flash, segment_reduce and embedding_bag phase 12's,
-                 which each kernel's `model_path` lists by shape), the card
-                 line, then the last line {"ok": true, "device": {...}}.
+ 14. training  — the training path (`repro_torch.launch.train`, `optim`,
+                 `data`, `checkpoint`, the models' `loss_fn`s): (a) the
+                 flash backward (`csrc/flash_attention_bwd.cu`) against
+                 float64 autograd of `attention_plain` on the same inputs
+                 over BWD_SWEEP (Sq and Skv ragged across the tiles, Sq <
+                 Skv, Hq / Hkv 1 to 8, Dh 12 to 128), float32 within
+                 BWD_F32_ERR of the largest entry, bfloat16 within
+                 BWD_BF16_REL_ERR in relative norm, causal and not, every
+                 call repeated bit-equal, and as a control the gradients
+                 with key 0's row of dK and dV dropped must miss;
+                 (b) the gradient scatters (`gather_rows`, the sum
+                 backwards of segment_reduce and embedding_bag) at the main
+                 path's shapes, bit-equal on a repeat and within the
+                 float32 bound of the float64 sum; (c) granite-moe-1b-a400m
+                 at its published width and depth in bf16, TRAIN_STEPS
+                 steps of `train_step` at B = 8, S = 1024, counted: the
+                 loss falls, s/step, tokens/s, peak memory, launches; one
+                 step's gradients twice, bit-equal, finite and nonzero;
+                 (d) `python -m repro_torch.launch.train` on the 100m
+                 preset for 20 steps, then resumed from step 10: the
+                 resumed step-20 checkpoint bit-equal to the straight
+                 run's, the straight run's launches (its summary line)
+                 counted, float32 flash and its backward among them; (e)
+                 five AdamW steps each of DeepFM (ClickStream, B = 4,096),
+                 gcn-cora, gatedgcn, gin-tu and DimeNet at phase 12's
+                 widths, counted, their first gradients against the
+                 kernels' fold-order plain route in float64; then the
+                 flash backward at granite-moe's layer (bf16 and float32)
+                 and granite-3-8b's, held against float64 autograd and
+                 timed beside its bound, plain version and the backward of
+                 scaled_dot_product_attention (query heads permuted to the
+                 port's h % Hkv map);
+ 15. report    — the `kernels` JSON line (all ten kernels, flash as two
+                 forward routes and a backward; ell_combine, the batched
+                 pull, segment_reduce and frontier_pack count phases 9, 10,
+                 11 and 13's launches too, flash, segment_reduce and
+                 embedding_bag phases 12 and 14's (with the launches of
+                 14 (d)'s subprocess), which each kernel's
+                 `model_path` lists by shape), the card line, then the last
+                 line {"ok": true, "device": {...}}.
 
 Kernel times are CUDA-event means over a run of calls. Kernels under 0.1 ms
 (frontier_pack, embedding_bag, the segment_reduce merges) and their library
@@ -281,6 +315,7 @@ import dataclasses
 import gc
 import io
 import json
+import os
 import re
 import subprocess
 import sys
@@ -3674,6 +3709,508 @@ def acclint_phase(dev, ops, g) -> collections.Counter:
     return got
 
 
+# ---------------------------------------------------------------------------
+# phase 14: training
+# ---------------------------------------------------------------------------
+
+#: the backward sweep: (B, Hq, Hkv, Sq, Skv, Dh), ragged across the 64-row
+#: tiles, Sq < Skv, Hq / Hkv of 1, 2, 4 and 8, Dh 12, 16, 64 and 128
+BWD_SWEEP = [(1, 1, 1, 37, 37, 12), (2, 2, 1, 70, 133, 16), (1, 4, 2, 129, 200, 64),
+             (1, 8, 8, 64, 64, 128), (2, 8, 2, 100, 257, 64), (1, 8, 4, 1, 77, 128),
+             (1, 4, 1, 257, 513, 16), (1, 8, 1, 65, 130, 64)]
+#: (c): granite-moe-1b-a400m at its published config, `main`'s batch at S 1024
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "granite-moe-1b-a400m", 8, 1024, 10
+#: (d): `main` end to end on the reference's 100m preset, resumed from step 10
+MAIN_ARGV = ["--arch", "granite-moe-1b-a400m", "--preset", "100m", "--steps", "20",
+             "--ckpt-every", "10"]
+#: (e): AdamW steps a family; a gradient leaf's float32 distance from the
+#: float64 plain route (relative norm) may be GRAPH_F64_RATIO times the
+#: float32 plain route's, or GRAPH_F64_FLOOR. The plain route is the
+#: kernels' fold-order models (`segment_reduce_ordered`,
+#: `embedding_bag_ordered`), so its forward sums are the kernels' and its
+#: reading does not move from run to run (`index_add_`'s does)
+FAMILY_STEPS = 5
+#: (b): the gradient scatters at the main path's shapes: the granite-moe
+#: embedding (vocab padded to 51200, d 1024) at 8 x 1024 tokens, its MoE
+#: combine (8,192 tokens x top 8 pairs), DeepFM's table at B = 4,096
+SCATTER_CASES = (("gather_rows", 51200, 1024, (8, 1024)),
+                 ("segment_reduce", 8192, 1024, 65536),
+                 ("embedding_bag", 3_900_000, 10, (4096, 39)))
+#: the flash backward's timed shapes: granite-moe-1b-a400m's layer (the
+#: main path's, in bf16 and float32) and granite-3-8b's
+BWD_TIMED = (("granite-moe", (8, 16, 8, 1024, 64), torch.bfloat16),
+             ("granite-moe float32", (8, 16, 8, 1024, 64), torch.float32),
+             ("granite-3-8b", (2, 32, 8, 1024, 128), torch.bfloat16))
+TRAIN_KERNELS = ("flash_attention", "flash_attention_f32", "flash_attention_bwd",
+                 "segment_reduce", "embedding_bag")
+#: the kernels (d)'s float32 MoE run must launch, read from its summary line
+MAIN_KERNELS = ("flash_attention_f32", "flash_attention_bwd", "segment_reduce")
+
+
+def exact_attention_grads(fa, q, k, v, dout, causal: bool):
+    """float64 autograd of `attention_plain` on the (rounded) inputs."""
+    qq, kk, vv = (t.double().requires_grad_() for t in (q, k, v))
+    out = fa.attention_plain(qq, kk, vv, causal)
+    return torch.autograd.grad(out, (qq, kk, vv), dout.double())
+
+
+def bwd_err(fa, got, exact) -> float:
+    """The backward's error as its tolerance reads it: float32, the largest
+    |a - x| over the largest |x| of each gradient; bfloat16, the relative
+    norm."""
+    if got[0].dtype == torch.float32:
+        return max(float((a.double() - x).abs().max() / x.abs().max()) for a, x in zip(got, exact))
+    return max(float((a.double() - x).norm() / x.norm()) for a, x in zip(got, exact))
+
+
+def sweep_flash_bwd(dev, rng, fa, ops) -> float:
+    """(a) The flash backward against float64 autograd of the plain
+    attention on the same inputs, both dtypes, causal and not; each call
+    repeated and bit-equal. The control: the kernel's gradients with key
+    0's row of dK and dV set to 0 must miss the tolerance. Returns the worst
+    float32 |kernel - exact|."""
+    worst_abs, worst = 0.0, {torch.float32: 0.0, torch.bfloat16: 0.0}
+    least_control = float("inf")
+    for b, hq, hkv, sq, skv, d in BWD_SWEEP:
+        base = [rng.standard_normal(s) for s in ((b, hq, sq, d), (b, hkv, skv, d),
+                                                  (b, hkv, skv, d), (b, hq, sq, d))]
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v, dout = (torch.from_numpy(x).to(dev).to(dt) for x in base)
+            tol = fa.BWD_F32_ERR if dt == torch.float32 else fa.BWD_BF16_REL_ERR
+            for causal in (True, False):
+                out = fa.flash_attention_cuda(q, k, v, causal)
+                ops.reset_launches()
+                got = fa.flash_attention_bwd_cuda(q, k, v, out, dout, causal)
+                if ops.launch_counts()[fa.BACKWARD] != 1:
+                    raise AssertionError("the flash backward did not launch once")
+                again = fa.flash_attention_bwd_cuda(q, k, v, out, dout, causal)
+                what = f"flash backward B={b} Hq={hq} Hkv={hkv} Sq={sq} Skv={skv} D={d} {dt} {causal=}"
+                if not all(bit_equal(x, y) for x, y in zip(got, again)):
+                    raise AssertionError(f"{what}: two calls differ")
+                exact = exact_attention_grads(fa, q, k, v, dout, causal)
+                e = bwd_err(fa, got, exact)
+                if not e <= tol:
+                    raise AssertionError(f"{what}: error {e:.3g} > {tol}")
+                worst[dt] = max(worst[dt], e)
+                if dt == torch.float32:
+                    worst_abs = max(worst_abs, max(abs_err(a.double(), x) for a, x in zip(got, exact)))
+                dropped = [x.clone() for x in got]
+                for x in dropped[1:]:
+                    x[:, :, 0] = 0
+                control = bwd_err(fa, dropped, exact)
+                if not control > tol:
+                    raise AssertionError(f"{what}: with key 0's row of dK and dV dropped the "
+                                         f"error is {control:.3g}, within the tolerance")
+                least_control = min(least_control, control / tol)
+    log(f"[14 training] (a) flash backward sweep ({len(BWD_SWEEP)} shapes x 2 dtypes x causal "
+        f"and not) against float64 autograd of attention_plain: float32 worst {worst[torch.float32]:.3g} "
+        f"of the largest entry (limit {fa.BWD_F32_ERR}), bfloat16 worst relative norm "
+        f"{worst[torch.bfloat16]:.3g} (limit {fa.BWD_BF16_REL_ERR}); every call bit-equal on a "
+        f"repeat; with key 0's row of dK and dV dropped, at least {least_control:.3g} times "
+        "the tolerance")
+    return worst_abs
+
+
+def check_scatter(got: torch.Tensor, ids: torch.Tensor, rows: torch.Tensor, num: int,
+                  what: str) -> float:
+    """`got` (num, D), a float32 scatter-sum of `rows` by `ids` (ids outside
+    [0, num) dropped), within L * 2^-24 * sum|v| of the float64 sum of each
+    entry's L rows (a float32 sum in any order). Returns the largest share
+    of that bound."""
+    ok = (ids >= 0) & (ids < num)
+    ids, rows = ids[ok].long(), rows.reshape(ids.shape[0], -1)[ok].double()
+    d = rows.shape[1]
+    exact = torch.zeros((num, d), dtype=torch.float64, device=rows.device).index_add_(0, ids, rows)
+    mass = torch.zeros_like(exact).index_add_(0, ids, rows.abs())
+    count = torch.bincount(ids, minlength=num).double()[:, None]
+    bound = count * 2.0 ** -24 * mass
+    off = (got.reshape(num, d).double() - exact).abs()
+    if bool((off > bound).any()):
+        raise AssertionError(f"{what}: a sum is {float((off - bound).max()):.3g} beyond its "
+                             "float32 bound")
+    return float((off / bound.clamp_min(1e-300)).max())
+
+
+def hold_scatters(dev, ops, sr, bag) -> None:
+    """(b) `gather_rows`, the sum backwards of `segment_reduce` and of
+    `embedding_bag` at SCATTER_CASES' shapes, on the card: each gradient
+    within the float32 bound of the float64 sum (`check_scatter`), against
+    plain autograd, and two backward calls bit-equal."""
+    gen = torch.Generator(device=dev).manual_seed(14)
+    for name, v, d, shape in SCATTER_CASES:
+        grads = []
+        if name == "gather_rows":
+            table = torch.randn(v, d, device=dev, generator=gen)
+            idx = torch.randint(0, 49155, shape, device=dev, generator=gen)
+            g = torch.randn(shape + (d,), device=dev, generator=gen)
+            for _ in range(2):
+                t = table.clone().requires_grad_()
+                ops.reset_launches()
+                (ops.gather_rows(t, idx) * g).sum().backward()
+                grads.append(t.grad)
+            ids, rows, num = idx.reshape(-1), g.reshape(-1, d), v
+            t = table.clone().requires_grad_()
+            (t[idx] * g).sum().backward()
+            plain = t.grad
+        elif name == "segment_reduce":
+            vals = torch.randn(shape, d, device=dev, generator=gen)
+            sid = torch.sort(torch.randint(0, v, (shape,), device=dev, generator=gen,
+                                           dtype=torch.int32)).values
+            g = torch.randn(v, d, device=dev, generator=gen)
+            for _ in range(2):
+                x = vals.clone().requires_grad_()
+                ops.reset_launches()
+                (ops.segment_reduce(x, sid, v) * g).sum().backward()
+                grads.append(x.grad)
+            x = vals.clone().requires_grad_()
+            (sr.segment_reduce_plain(x, sid, v) * g).sum().backward()
+            plain = x.grad
+            if not bit_equal(grads[0], plain):      # a gather: exact
+                raise AssertionError("segment_reduce's backward differs from plain autograd")
+        else:
+            table = torch.randn(v, d, device=dev, generator=gen) * 0.01
+            idx = torch.randint(0, v, shape, device=dev, generator=gen, dtype=torch.int32)
+            g = torch.randn(shape[0], d, device=dev, generator=gen)
+            for _ in range(2):
+                t = table.clone().requires_grad_()
+                ops.reset_launches()
+                (ops.embedding_bag(t, idx, "sum") * g).sum().backward()
+                grads.append(t.grad)
+            ids, rows, num = idx.reshape(-1), g[:, None].expand(shape + (d,)).reshape(-1, d), v
+            t = table.clone().requires_grad_()
+            (bag.embedding_bag_plain(t, idx, "sum") * g).sum().backward()
+            plain = t.grad
+        counts = ops.launch_counts()
+        if not bit_equal(grads[0], grads[1]):
+            raise AssertionError(f"{name}: two backward calls differ")
+        share = None
+        if name != "segment_reduce":
+            if counts["segment_reduce"] != 1:
+                raise AssertionError(f"{name}'s backward launched segment_reduce "
+                                     f"{counts['segment_reduce']} times")
+            share = check_scatter(grads[0], ids, rows, num, name)
+            check_scatter(plain, ids, rows, num, f"{name} (plain autograd)")
+        log(f"[14 training] (b) {name} backward at {shape} over ({v}, {d}): bit-equal on a "
+            f"repeat; max |kernel route - plain autograd| {abs_err(grads[0], plain):.3g}"
+            f"{' (a gather: equal)' if share is None else f'; {share:.3g} of its float32 bound'}")
+    reset_peak()
+
+
+def grad_leaves_ok(grads, what: str) -> None:
+    for i, g in enumerate(grads):
+        if not bool(torch.isfinite(g).all()) or not bool((g != 0).any()):
+            raise AssertionError(f"{what}: gradient leaf {i} {tuple(g.shape)} is not finite or "
+                                 "all zero")
+
+
+def granite_moe_training(dev, ops) -> collections.Counter:
+    """(c) granite-moe-1b-a400m at its published width and depth in bf16:
+    TRAIN_STEPS steps of `train_step` at main's batch and S = 1024, through
+    the functions `main` uses (`preset_config`, `init_params`, `adamw.init`,
+    `TokenStream`, `train_step`), counted; the loss must fall; then one
+    step's gradients twice, bit-equal, every leaf finite and nonzero."""
+    from repro_torch import obs
+    from repro_torch import tree as T
+    from repro_torch.data import TokenStream
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import adamw
+
+    cfg = train.preset_config(TRAIN_ARCH, "full")
+    opt_cfg = adamw.AdamWConfig(lr=3e-3, total_steps=TRAIN_STEPS,
+                                warmup_steps=max(10, TRAIN_STEPS // 20), weight_decay=0.01)
+    reset_peak()
+    params = tfm.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    opt = adamw.init(params, opt_cfg)
+    params = train.trainable(params)
+    stream = TokenStream(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    batches = [tuple(torch.from_numpy(a).to(dev) for a in next(stream))
+               for _ in range(TRAIN_STEPS + 1)]
+    losses, times = [], []
+
+    def drive():
+        for x, y in batches[:TRAIN_STEPS]:
+            t = time.perf_counter()
+            m = train.train_step(params, opt, x, y, cfg, opt_cfg)
+            losses.append(float(obs.device_fetch(m["loss"])))
+            times.append(time.perf_counter() - t)
+
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    drive()
+    torch.cuda.synchronize()
+    launches = collections.Counter({k: v for k, v in ops.launch_counts().items() if v})
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    per_step = sum(times[1:]) / (len(times) - 1)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    log(f"[14 training] (c) {TRAIN_ARCH} ({cfg.param_count() / 1e9:.3f} B parameters, bf16, "
+        f"{cfg.n_layers} layers, d {cfg.d_model}, {cfg.moe.n_experts} experts top "
+        f"{cfg.moe.top_k}, remat): {TRAIN_STEPS} steps at B={TRAIN_BATCH} S={TRAIN_SEQ}; losses "
+        f"{[round(x, 4) for x in losses]}; {per_step:.3f} s/step after the first "
+        f"({times[0]:.3f} s), {tokens / per_step:.0f} tokens/s; peak {peak:.2f} GiB; launches "
+        f"{dict(launches)}")
+    if not (losses[-1] < losses[0] and all(np.isfinite(losses))):
+        raise AssertionError(f"{TRAIN_ARCH}: the loss did not fall: {losses}")
+    for k in ("flash_attention", "flash_attention_bwd", "segment_reduce"):
+        if not launches[k]:
+            raise AssertionError(f"{TRAIN_ARCH} training did not launch {k}")
+    x, y = batches[-1]
+    leaves = T.leaves(params)
+    runs = []
+    for _ in range(2):
+        loss = tfm.loss_fn(params, x, y, cfg)
+        runs.append(torch.autograd.grad(loss, leaves))
+        del loss
+    same = all(bit_equal(a, b) for a, b in zip(*runs))
+    grad_leaves_ok(runs[0], TRAIN_ARCH)
+    log(f"[14 training] (c) one step's backward twice: {len(leaves)} gradient leaves "
+        f"{'bit-equal' if same else 'DIFFER'}, all finite and nonzero")
+    if not same:
+        raise AssertionError(f"{TRAIN_ARCH}: two backward passes differ")
+    MEASURED["train"] = dict(s_per_step=per_step, tokens_per_s=tokens / per_step,
+                             peak_gib=peak, first_loss=losses[0], last_loss=losses[-1])
+    del params, opt, runs, batches
+    reset_peak()
+    return launches
+
+
+def main_resume(root: Path) -> collections.Counter:
+    """(d) `python -m repro_torch.launch.train` end to end on the 100m
+    preset, then step_20 set aside and the run resumed from step_10: the
+    resumed step-20 parameters and moments bit-equal to the straight run's.
+    Returns the straight run's launches, from its JSON summary line, which
+    must hold every kernel of MAIN_KERNELS."""
+    import shutil
+
+    ckpt = root / "build" / "train_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    steps = int(MAIN_ARGV[MAIN_ARGV.index("--steps") + 1])
+    every = int(MAIN_ARGV[MAIN_ARGV.index("--ckpt-every") + 1])
+    last, mid = f"step_{steps}", steps - every
+    argv = [sys.executable, "-m", "repro_torch.launch.train", *MAIN_ARGV, "--ckpt-dir", str(ckpt)]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    outs, launches = [], collections.Counter()
+    for run in ("straight", "resumed"):
+        t0 = time.perf_counter()
+        out = subprocess.run(argv, cwd=root, env=env, capture_output=True, text=True,
+                             timeout=300)
+        if out.returncode != 0:
+            raise AssertionError(f"train {run} rc={out.returncode}:\n{out.stdout[-2000:]}"
+                                 f"\n{out.stderr[-3000:]}")
+        lines = out.stdout.strip().splitlines()
+        log(f"[14 training] (d) {' '.join(MAIN_ARGV)} ({run}, "
+            f"{time.perf_counter() - t0:.1f} s): " + " | ".join(lines))
+        outs.append(out.stdout)
+        if run == "straight":
+            os.replace(ckpt / last, ckpt / "straight")
+            launches.update(json.loads(lines[-1])["launches"])
+            missing = [k for k in MAIN_KERNELS if not launches[k]]
+            if missing:
+                raise AssertionError(f"the straight run launched no {missing}: {dict(launches)}")
+    if f"[resume] from step {mid}" not in outs[1]:
+        raise AssertionError(f"the second run did not resume from step {mid}")
+    with np.load(ckpt / "straight" / "arrays.npz") as a, \
+            np.load(ckpt / last / "arrays.npz") as b:
+        if sorted(a.files) != sorted(b.files):
+            raise AssertionError(f"the two {last} checkpoints hold other keys")
+        differ = [k for k in a.files if not np.array_equal(a[k], b[k])]
+        n_keys = len(a.files)
+    log(f"[14 training] (d) resumed {last} against the straight run's: {n_keys} arrays, "
+        f"{len(differ)} differ {differ[:5]}")
+    if differ:
+        raise AssertionError(f"the resumed run's {last} differs in {differ}")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    return launches
+
+
+def family_inputs(dev, arch: str):
+    """(loss_fn, params, args) of a family at phase 12's published widths:
+    DeepFM on a ClickStream batch of 4,096, the GNNs on `gnn_dataset` over
+    phase 12's graphs (graph labels drawn for the graph readout), DimeNet on
+    phase 12's molecules with drawn targets."""
+    from repro_torch import configs
+    from repro_torch.configs.registry import GNN_SHAPES
+    from repro_torch.data import ClickStream, gnn_dataset
+    from repro_torch.models import deepfm, dimenet, gnn
+
+    if arch == "deepfm":
+        cfg = configs.get("deepfm").make_config()
+        stream = ClickStream(cfg.n_fields, cfg.vocab_per_field, cfg.embed_dim, 4096, seed=0)
+        params = deepfm.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        batches = [tuple(torch.from_numpy(a).to(dev) for a in next(stream))
+                   for _ in range(FAMILY_STEPS)]
+        return deepfm.loss_fn, params, [(ids, y, cfg) for ids, y in batches]
+    cell = dict(GRAPH_CELLS)[arch]
+    fwd, params, args, _, _ = graph_inputs(dev, arch, GNN_SHAPES[cell], seed=30)
+    rng = np.random.default_rng(30)
+    if arch == "dimenet":
+        cfg, gids, n_graphs = args[6], args[7], args[8]
+        tgt = torch.from_numpy(rng.standard_normal((n_graphs, cfg.n_targets))
+                               .astype(np.float32)).to(dev)
+        return dimenet.loss_fn, params, [args[:6] + (tgt, cfg, gids, n_graphs)]
+    feats, src, dst, w, cfg, gids, n_graphs = args
+    n = feats.shape[0]
+    f, labels, mask = gnn_dataset(n, src.cpu().numpy(), dst.cpu().numpy(), cfg.d_in,
+                                  cfg.n_classes, seed=30)
+    if cfg.readout == "graph":
+        labels, mask = rng.integers(0, cfg.n_classes, n_graphs).astype(np.int32), None
+    feats = torch.from_numpy(f).to(dev)
+    mask = None if mask is None else torch.from_numpy(mask).to(dev)
+    return gnn.loss_fn, params, [(feats, src, dst, w, torch.from_numpy(labels).to(dev), cfg,
+                                  mask, gids, n_graphs)]
+
+
+def grads_of(loss_fn, params, args):
+    """Gradients of loss_fn(params, *args) in `walk` order (a leaf the loss
+    does not reach gets zeros)."""
+    from repro_torch import tree as T
+
+    return torch.autograd.grad(loss_fn(params, *args), T.leaves(params), allow_unused=True,
+                               materialize_grads=True)
+
+
+def grad_rel(grads, exact) -> float:
+    """The largest relative norm error of a gradient leaf against float64."""
+    return max(float((a.double() - x).norm() / x.norm().clamp_min(1e-300))
+               for a, x in zip(grads, exact))
+
+
+def family_training(dev, ops, sr, bag, fa) -> collections.Counter:
+    """(e) FAMILY_STEPS AdamW steps of DeepFM, gcn-cora, gatedgcn, gin-tu and
+    DimeNet, counted; before the first, the gradients on the kernels and
+    with every kernel op swapped to its plain version and autograd's own
+    backward (`with_ops`), each against the plain route's gradients in
+    float64: the kernels' worst leaf (relative norm) within GRAPH_F64_RATIO
+    times the plain route's or GRAPH_F64_FLOOR; the losses finite."""
+    from repro_torch import tree as T
+    from repro_torch.launch import train
+    from repro_torch.optim import adamw
+
+    plain = {"segment_reduce": sr.segment_reduce_ordered,
+             "embedding_bag": bag.embedding_bag_ordered, "attention": fa.attention_plain,
+             "gather_rows": lambda t, i: t[i.long()]}
+    launches = collections.Counter()
+    for arch in ("deepfm",) + tuple(a for a, _ in GRAPH_CELLS):
+        loss_fn, params, batches = family_inputs(dev, arch)
+        params = train.trainable(params)
+        leaves = T.leaves(params)
+        opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=0, total_steps=FAMILY_STEPS)
+        opt = adamw.init(params, opt_cfg)
+        p64 = T.unflatten(params, [x.detach().double().requires_grad_() for x in leaves])
+        exact = with_ops(ops, plain, lambda: grads_of(loss_fn, p64, double(batches[0])))
+        ep = grad_rel(with_ops(ops, plain, lambda: grads_of(loss_fn, params, batches[0])), exact)
+        del p64
+        losses = []
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        for step in range(FAMILY_STEPS):
+            args = batches[step % len(batches)]
+            loss = loss_fn(params, *args)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
+            if step == 0:
+                ek = grad_rel(grads, exact)
+            adamw.update(T.unflatten(params, grads), opt, params, opt_cfg)
+            losses.append(float(loss.detach()))
+        torch.cuda.synchronize()
+        got = collections.Counter({k: v for k, v in ops.launch_counts().items() if v})
+        launches.update(got)
+        log(f"[14 training] (e) {arch}: {FAMILY_STEPS} AdamW steps in "
+            f"{time.perf_counter() - t0:.2f} s, losses {[round(x, 4) for x in losses]}; first "
+            f"gradients from the float64 plain route: kernels {ek:.3g}, plain route {ep:.3g} "
+            f"(worst leaf, relative norm; limit {GRAPH_F64_RATIO} x plain or "
+            f"{GRAPH_F64_FLOOR}); launches {dict(got)}")
+        if not (ek <= max(GRAPH_F64_RATIO * ep, GRAPH_F64_FLOOR) and all(np.isfinite(losses))):
+            raise AssertionError(f"{arch}: gradients {ek:.3g} from float64 against the plain "
+                                 f"route's {ep:.3g}, or a loss not finite: {losses}")
+        del params, opt, batches, exact, grads
+    reset_peak()
+    return launches
+
+
+def time_flash_bwd(dev, fa, report, worst_abs: float, launches: int) -> None:
+    """The flash backward's row: timed at granite-moe-1b-a400m's layer
+    (8, 16, 1024, 64) in bf16 (and float32), beside its plain version, its
+    operations bound (five products over the causal pairs) and the backward
+    of scaled_dot_product_attention with the query heads permuted so that
+    the library's h // group map reads the kv head the port's h % Hkv map
+    reads; then at granite-3-8b's layer (2, 32 / 8, 1024, 128). At each
+    shape one call's (dq, dk, dv) is held against float64 autograd of the
+    plain attention, as the sweep holds them (`bwd_err`)."""
+    gen = torch.Generator(device=dev).manual_seed(15)
+    rows = {}
+    for label, (b, hq, hkv, s, d), dt in BWD_TIMED:
+        q = torch.randn(b, hq, s, d, device=dev, generator=gen).to(dt)
+        k, v = (torch.randn(b, hkv, s, d, device=dev, generator=gen).to(dt) for _ in range(2))
+        dout = torch.randn(b, hq, s, d, device=dev, generator=gen).to(dt)
+        out = fa.flash_attention_cuda(q, k, v, True)
+        pairs = b * hq * s * (s + 1) // 2
+        nbytes = (3 * q.numel() + 2 * k.numel() + q.numel() + 2 * k.numel()) * q.element_size()
+        # five products over the causal pairs; float32 as three TF32 products
+        bf16 = dt == torch.bfloat16
+        bnd = bound_ms(nbytes, 10 * pairs * d * (1 if bf16 else 3),
+                       BF16_OPS_PER_S if bf16 else TF32_OPS_PER_S)
+        group = hq // hkv
+        perm = [h for j in range(hkv) for h in range(j, hq, hkv)]     # library head j*group+t
+        ql = q[:, perm].contiguous().requires_grad_()
+        kl, vl = k.clone().requires_grad_(), v.clone().requires_grad_()
+        lib_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True, enable_gqa=True)
+        back = lib_out.detach()[:, [perm.index(h) for h in range(hq)]]
+        if not rel_err(back, out) <= fa.BF16_REL_ERR:
+            raise AssertionError("the permuted library attention is not the port's")
+        dl = dout[:, perm].contiguous()
+        got = fa.flash_attention_bwd_cuda(q, k, v, out, dout, True)
+        exact = exact_attention_grads(fa, q, k, v, dout, True)
+        err, tol = bwd_err(fa, got, exact), (fa.BWD_F32_ERR if not bf16 else fa.BWD_BF16_REL_ERR)
+        if not bf16:
+            worst_abs = max(worst_abs, max(abs_err(a.double(), x) for a, x in zip(got, exact)))
+        del exact
+        if not err <= tol:
+            raise AssertionError(f"flash backward at {label}: error {err:.3g} > {tol}")
+        rows[label] = dict(err=err, tol=tol,
+            shape=f"q {tuple(q.shape)}, kv {tuple(k.shape)}, {dt}, causal",
+            ms=cuda_ms(lambda: fa.flash_attention_bwd_cuda(q, k, v, out, dout, True), 5, 2),
+            plain_ms=cuda_ms(lambda: fa.attention_bwd_plain(q, k, v, out, dout, True), 2, 1),
+            library_ms=cuda_ms(lambda: torch.autograd.grad(lib_out, (ql, kl, vl), dl,
+                                                           retain_graph=True), 5, 2),
+            bound_ms=bnd[0], bound_by=bnd[1])
+        r = rows[label]
+        log(f"[14 training] flash_attention_bwd at {label} {r['shape']}: "
+            f"{'max |a - x| / max |x|' if not bf16 else 'relative norm'} {err:.3g} from float64 "
+            f"autograd (limit {tol}); {r['ms']:.3f} ms, "
+            f"bound {r['bound_ms']:.4f} by {r['bound_by']}, plain {r['plain_ms']:.3f}, "
+            f"scaled_dot_product_attention backward (heads permuted, group {group}) "
+            f"{r['library_ms']:.3f}")
+        del q, k, v, dout, out, ql, kl, vl, lib_out, dl, got
+    main = rows.pop("granite-moe")
+    report["flash_attention_bwd"] = dict(
+        replaces="src/repro/nn/layers.py:97 (jax.grad of XLA attention, no Pallas kernel)",
+        max_abs_err=worst_abs, main_path_launches=launches, other_shapes=rows, **main)
+    reset_peak()
+
+
+def training_phase(dev, ops, sr, bag, fa, report, root: Path) -> dict:
+    """Phase 14: training. (a) the flash backward sweep, (b) the gradient
+    scatters, (c) granite-moe-1b-a400m at full width, (d) `main` end to end
+    and resumed, (e) the other families; the counted launches of (c), (d)
+    and (e) (launches of the kernels, (d)'s from its summary line) are returned."""
+    t = [time.perf_counter()]
+    worst_abs = sweep_flash_bwd(dev, np.random.default_rng(14), fa, ops)
+    hold_scatters(dev, ops, sr, bag)
+    t.append(time.perf_counter())
+    launches = granite_moe_training(dev, ops)
+    t.append(time.perf_counter())
+    launches.update(main_resume(root))
+    t.append(time.perf_counter())
+    launches.update(family_training(dev, ops, sr, bag, fa))
+    t.append(time.perf_counter())
+    time_flash_bwd(dev, fa, report, worst_abs, launches["flash_attention_bwd"])
+    log(f"[14 training] launches {dict(launches)}; (a)+(b) {t[1] - t[0]:.1f} s, (c) "
+        f"{t[2] - t[1]:.1f} s, (d) {t[3] - t[2]:.1f} s, (e) {t[4] - t[3]:.1f} s, timing "
+        f"{time.perf_counter() - t[4]:.1f} s")
+    return {k: launches[k] for k in TRAIN_KERNELS}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=22, help="RMAT scale of the main path")
@@ -4045,7 +4582,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"[13 acclint] phase {time.perf_counter() - t0:.1f} s")
 
-    # -- phase 14: report ------------------------------------------------------
+    # -- phase 14: training ---------------------------------------------------------
+    t0 = time.perf_counter()
+    for name, k in training_phase(dev, ops, sr, bag, fa, report,
+                                  Path(__file__).resolve().parent).items():
+        launches[name] += k
+    log(f"[14 training] phase {time.perf_counter() - t0:.1f} s")
+
+    # -- phase 15: report ------------------------------------------------------
     kernels = []
     for name in _build.KERNELS:
         if launches[name] <= 0:
@@ -4053,7 +4597,7 @@ def main() -> int:
         kernels.append(dict(name=name, route="cuda",
                             source=f"src/repro_torch/csrc/{_build.KERNELS[name]}.cu",
                             launches=launches[name], passed=True, **report[name]))
-    log(f"[14 report] total {time.perf_counter() - t_start:.1f} s, against the 1200 s "
+    log(f"[15 report] total {time.perf_counter() - t_start:.1f} s, against the 1200 s "
         "limit of the chip call")
     log(json.dumps({"kernels": kernels}))
     log(card_line())

@@ -10,6 +10,7 @@ tests to run both packages on one graph, one packing and one initial state.
     st = batch_state_from_numpy({"m": {k: np.asarray(v) for k, v in ref.m.items()},
                                  "it": np.asarray(ref.it), ...}, device="cuda")
     params = params_from_numpy(jax.tree.map(np.asarray, jax_params), device="cuda")
+    opt = opt_state_from_numpy(jax.tree.map(np.asarray, jax_opt_state), device="cuda")
 """
 
 from __future__ import annotations
@@ -100,6 +101,16 @@ def params_from_numpy(tree, device="cuda"):
     if isinstance(tree, (list, tuple)):
         return [params_from_numpy(v, device) for v in tree]
     return tensor_from_numpy(tree, device)
+
+
+def opt_state_from_numpy(state: Mapping, device="cuda") -> dict:
+    """The reference's AdamW state (`step`, `m`, `v`, numpy, dtypes kept;
+    an int8 moment leaf is a dict {'q', 's'}) as `optim.adamw` keeps it:
+    `step` an int32 scalar tensor, the moments the same nesting of
+    tensors."""
+    return {"step": tensor_from_numpy(np.asarray(state["step"], np.int32), device),
+            "m": params_from_numpy(state["m"], device),
+            "v": params_from_numpy(state["v"], device)}
 
 
 def cache_from_numpy(cache: Mapping, device="cuda") -> dict:

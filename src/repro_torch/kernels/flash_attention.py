@@ -29,6 +29,20 @@ keys. The sharp bfloat16 check is against `attention_rounded`, the plain
 version that rounds where the kernels round (float32 scores, P rounded to
 bfloat16, a float32 P.V, the output rounded to bfloat16), within
 ROUNDED_REL_ERR in relative norm.
+
+The backward, for training, is `csrc/flash_attention_bwd.cu` (counted as
+`flash_attention_bwd`, both dtypes), which has no Pallas counterpart: the
+reference differentiates XLA's attention. From q, k, v, the forward's
+output and its gradient it gives (dq, dk, dv) in q's dtype, computed in
+float32 in three launches (row log-sum-exp and Delta = rowsum(dO o O), then
+dK/dV a kv tile, then dQ a q tile) with no float atomics, so a call is
+bit-for-bit repeatable. It is the exact derivative of attention at the
+given inputs in float32: the bfloat16 forward rounds P before P.V, and the
+backward does not model that rounding. `attention_bwd_plain` is its plain
+version, and both are held to autograd of `attention_plain` in float64 on
+the same inputs: within BWD_F32_ERR (relative to the largest gradient
+entry) for float32 inputs, and within BWD_BF16_REL_ERR in relative norm for
+bfloat16 inputs, whose output and dout round to bfloat16.
 """
 
 from __future__ import annotations
@@ -44,6 +58,8 @@ MAX_HEAD_DIM = 128
 #: the two kernels, by their names in `_build.KERNELS`: wgmma on bfloat16,
 #: mma.sync in TF32 (3xTF32 for float32) on the rest
 TENSOR_CORES, TF32 = "flash_attention", "flash_attention_f32"
+#: the backward kernel (both dtypes), by its name in `_build.KERNELS`
+BACKWARD = "flash_attention_bwd"
 #: bfloat16 kernel vs plain version, ||a - p|| / ||p||: the worst reading
 #: on an H100 (chip_smoke.py's sweep and granite shapes) is 6.4e-3, for the
 #: wgmma kernel. The plain version rounds its
@@ -55,6 +71,14 @@ BF16_REL_ERR = 1e-2
 #: the output (about 2e-3); dropping one key from rows of 1,024 keys moves
 #: the output by about 3e-2
 ROUNDED_REL_ERR = 5e-3
+#: backward vs float64 autograd for float32 inputs: max |a - x| over
+#: max |x|, per gradient (float32 sums of up to Skv * group products; the
+#: plain version reads 2e-7 to 6e-7 on the CPU)
+BWD_F32_ERR = 2e-5
+#: backward vs float64 autograd for bfloat16 inputs, ||a - x|| / ||x||: the
+#: gradients round to bfloat16 (2^-9) and Delta uses the forward's bfloat16
+#: output (the plain version reads 1.6e-3 to 2.2e-3 on the CPU)
+BWD_BF16_REL_ERR = 5e-3
 
 
 def _shapes(q, k, v):
@@ -160,6 +184,39 @@ def attention_3xtf32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (o / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)).to(q.dtype)
 
 
+def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, dout: torch.Tensor, causal: bool = True
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the backward kernel: (dq, dk, dv) in the inputs'
+    dtypes, computed in float32 from the inputs as given. P is the softmax of
+    the scaled scores, Delta = rowsum(dout o out) uses the forward's `out`,
+    dS = P o (dP - Delta); dk and dv sum over the query heads that read each
+    kv head (h % Hkv). A row that sees no kv position gets a zero gradient."""
+    b, hq, hkv, sq, skv, d = _shapes(q, k, v)
+    group = hq // hkv
+    qf, dof = q.float(), dout.float()
+    kk = k.float().repeat(1, group, 1, 1)          # group-major: head h -> h % hkv
+    vv = v.float().repeat(1, group, 1, 1)
+    scale = 1.0 / d ** 0.5
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kk) * scale
+    if causal:
+        qpos = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
+        kpos = torch.arange(skv, device=q.device)[None, :]
+        s = torch.where(kpos <= qpos, s, float("-inf"))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - torch.where(torch.isfinite(m), m, 0.0))
+    p = p / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vv)
+    delta = (dof * out.float()).sum(dim=-1, keepdim=True)
+    ds = p * (dp - delta)
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kk) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    dk = dk.reshape(b, group, hkv, skv, d).sum(dim=1)
+    dv = dv.reshape(b, group, hkv, skv, d).sum(dim=1)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def route(dtype: torch.dtype, d: int) -> str:
     """The kernel that takes inputs of `dtype` and head dim `d` on the card:
     wgmma for bfloat16 with d % 8 == 0, else the TF32 mma.sync kernel."""
@@ -223,3 +280,39 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.check(err, kernel)
     _build.LAUNCHES[kernel] += 1
     return out
+
+
+#: flash_attention_bwd_launch's: q, k, v, out, dout, dq, dk, dv, stats;
+#: B, Hq, Hkv, Sq, Skv, D; scale; causal, dtype; stream
+_BWD_ARGTYPES = ((ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 6
+                 + (ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p))
+
+
+def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             out: torch.Tensor, dout: torch.Tensor, causal: bool = True
+                             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch `csrc/flash_attention_bwd.cu` (row statistics, dK/dV, dQ) on
+    PyTorch's current stream; returns (dq, dk, dv) in q's dtype."""
+    dev = q.device
+    b, hq, hkv, sq, skv, d = _shapes(q, k, v)
+    if q.dtype not in DTYPES:
+        raise TypeError(f"q has dtype {q.dtype}, expected float32 or bfloat16")
+    ptrs = [_build.require(t, name, q.dtype, 4, dev)
+            for t, name in ((q, "q"), (k, "k"), (v, "v"), (out, "out"), (dout, "dout"))]
+    if out.shape != q.shape or dout.shape != q.shape:
+        raise ValueError(f"out {tuple(out.shape)} and dout {tuple(dout.shape)} must be "
+                         f"q's shape {tuple(q.shape)}")
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d} outside [1, {MAX_HEAD_DIM}]")
+    if skv < 1:
+        raise ValueError("no kv positions")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    stats = torch.empty(2 * b * hq * sq, dtype=torch.float32, device=dev)
+    fn = _build.entry(BACKWARD, "flash_attention_bwd_launch", _BWD_ARGTYPES)
+    with _build.device_guard(dev):
+        err = fn(*ptrs, dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
+                 b, hq, hkv, sq, skv, d, 1.0 / (d ** 0.5), int(causal), DTYPES[q.dtype],
+                 _build.stream_of(dev))
+    _build.check(err, BACKWARD)
+    _build.LAUNCHES[BACKWARD] += 1
+    return dq, dk, dv

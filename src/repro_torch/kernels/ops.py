@@ -7,6 +7,22 @@ reference leaves to XLA. The pick is by the device of the tensor given: a CPU te
 kernel's plain PyTorch version, a CUDA tensor to the CUDA kernel — or the call
 raises (nvcc missing, a refused launch). There is no fallback from one to the
 other.
+
+Gradients. A kernel writes into a fresh tensor and carries no `grad_fn`, so
+the ops that training differentiates are `torch.autograd.Function`s, whose
+output has no `grad_fn` where no input requires a gradient (as in serving):
+`segment_reduce` (sum: the backward is a gather, `grad[seg_id]`, 0 for a
+dropped id), `embedding_bag` (sum, mean: the deterministic scatter of each
+bag's gradient over its ids, [-V, -1] wrapped to id + V; an id still
+outside [0, V) drops, as `jax.grad` of the reference's `table[idx]` drops
+it, though its forward clamps it), `attention` (the flash backward kernel,
+`csrc/flash_attention_bwd.cu`) and `gather_rows` (`table[idx]`, whose
+backward is the deterministic scatter). The deterministic scatter sorts the
+flat ids stably, gathers the gradient rows in that order and sums them with
+`segment_reduce` (the kernel on the card), so every row's sum is taken in
+one fixed order: autograd's backward of plain indexing is an accumulating
+`index_put_`, whose order PyTorch does not fix. The min/max backwards of
+`segment_reduce` and `embedding_bag` are not ported and raise.
 """
 
 from __future__ import annotations
@@ -61,28 +77,138 @@ def frontier_pack(mask, cap: int):
     return _fp.frontier_pack_plain(mask, cap)
 
 
-def segment_reduce(vals, seg_ids, num_segments: int, combine: str = "sum",
-                   fill: Optional[float] = None):
-    """(num,) or (num, D) reduction over ascending `seg_ids`; empty segments
-    hold `fill` (default: the combine identity)."""
+def _segment_reduce(vals, seg_ids, num_segments, combine, fill):
     if _route(vals) == "cuda":
         return _sr.segment_reduce_cuda(vals, seg_ids, num_segments, combine, fill)
     return _sr.segment_reduce_plain(vals, seg_ids, num_segments, combine, fill)
 
 
-def embedding_bag(table, idx, mode: str = "sum"):
-    """(B, D) sum, mean or max over each bag of (B, K) rows of `table`."""
+def _embedding_bag(table, idx, mode):
     if _route(table) == "cuda":
         return _bag.embedding_bag_cuda(table, idx, mode)
     return _bag.embedding_bag_plain(table, idx, mode)
 
 
-def attention(q, k, v, causal: bool = True):
-    """Causal GQA attention, (B, Hq, Sq, D) in q's dtype; head h reads kv
-    head h % Hkv."""
+def _attention(q, k, v, causal):
     if _route(q) == "cuda":
         return _fa.flash_attention_cuda(q, k, v, causal)
     return _fa.attention_plain(q, k, v, causal)
+
+
+def _attention_bwd(q, k, v, out, dout, causal):
+    if _route(q) == "cuda":
+        return _fa.flash_attention_bwd_cuda(q, k, v, out, dout, causal)
+    return _fa.attention_bwd_plain(q, k, v, out, dout, causal)
+
+
+def _scatter_rows(rows: torch.Tensor, ids: torch.Tensor, num: int) -> torch.Tensor:
+    """The deterministic scatter: (num, ...) float32 sums of `rows` (N, ...)
+    by `ids` (N,), ids outside [0, num) dropped. The ids are sorted stably,
+    the rows gathered in that order and summed by `segment_reduce`, so each
+    sum runs over its rows in their original order, on the kernel on the
+    card."""
+    ids, order = torch.sort(ids.reshape(-1).to(torch.int32), stable=True)
+    flat = rows[order].float().reshape(ids.shape[0], -1)
+    out = _segment_reduce(flat.contiguous(), ids.contiguous(), num, "sum", None)
+    return out.reshape((num,) + tuple(rows.shape[1:]))
+
+
+class _SegmentReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, vals, seg_ids, num, combine, fill):
+        ctx.save_for_backward(seg_ids)
+        ctx.num, ctx.combine = num, combine
+        return _segment_reduce(vals, seg_ids, num, combine, fill)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if ctx.combine != "sum":
+            raise NotImplementedError(
+                f"the backward of segment_reduce {ctx.combine!r} is not ported (only sum)")
+        (seg_ids,) = ctx.saved_tensors
+        num = ctx.num
+        ok = (seg_ids >= 0) & (seg_ids < num)
+        pad = torch.cat([grad, grad.new_zeros((1,) + tuple(grad.shape[1:]))])
+        return pad[torch.where(ok, seg_ids, num).long()], None, None, None, None
+
+
+class _EmbeddingBag(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, idx, mode):
+        ctx.save_for_backward(idx)
+        ctx.mode, ctx.rows, ctx.dtype = mode, table.shape[0], table.dtype
+        return _embedding_bag(table, idx, mode)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if ctx.mode not in ("sum", "mean"):
+            raise NotImplementedError(
+                f"the backward of embedding_bag {ctx.mode!r} is not ported (sum, mean)")
+        (idx,) = ctx.saved_tensors
+        b, k = idx.shape
+        if ctx.mode == "mean":
+            grad = grad / k
+        rows = grad[:, None, :].expand(b, k, grad.shape[-1]).reshape(b * k, -1)
+        # wrapped once but not clamped: an id the forward clamped drops here
+        ids = torch.where(idx < 0, idx + ctx.rows, idx)
+        return _scatter_rows(rows, ids, ctx.rows).to(ctx.dtype), None, None
+
+
+class _Attention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        out = _attention(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = _attention_bwd(q, k, v, out, dout.contiguous(), ctx.causal)
+        return dq, dk, dv, None
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.shape, ctx.dtype = tuple(table.shape), table.dtype
+        return table[idx]
+
+    @staticmethod
+    def backward(ctx, grad):
+        (idx,) = ctx.saved_tensors
+        rows = grad.reshape((-1,) + ctx.shape[1:])
+        ids = torch.where(idx < 0, idx + ctx.shape[0], idx)
+        return _scatter_rows(rows, ids, ctx.shape[0]).to(ctx.dtype), None
+
+
+def segment_reduce(vals, seg_ids, num_segments: int, combine: str = "sum",
+                   fill: Optional[float] = None):
+    """(num,) or (num, D) reduction over ascending `seg_ids`; empty segments
+    hold `fill` (default: the combine identity). Differentiable for sum."""
+    return _SegmentReduce.apply(vals, seg_ids, num_segments, combine, fill)
+
+
+def embedding_bag(table, idx, mode: str = "sum"):
+    """(B, D) sum, mean or max over each bag of (B, K) rows of `table`.
+    Differentiable in `table` for sum and mean."""
+    return _EmbeddingBag.apply(table, idx, mode)
+
+
+def attention(q, k, v, causal: bool = True):
+    """Causal GQA attention, (B, Hq, Sq, D) in q's dtype; head h reads kv
+    head h % Hkv. Differentiable in q, k and v (the flash backward on the
+    card)."""
+    return _Attention.apply(q, k, v, causal)
+
+
+def gather_rows(table, idx):
+    """`table[idx]` for an integer `idx` of any shape (ids in [-V, V), a
+    negative id counting from the end): (*idx.shape, *table.shape[1:]).
+    Differentiable in `table`, by the deterministic scatter."""
+    return _GatherRows.apply(table, idx.long())
 
 
 def launch_counts() -> dict:

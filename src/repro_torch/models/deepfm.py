@@ -9,7 +9,9 @@ The sums over a sample's fields (the reference's `emb.sum(axis=1)` and
 `linear[gids].sum(axis=1)`) and the pooled user vector (`.mean(axis=1)`)
 are bags of the 39 rows, so they run on `kernels.ops.embedding_bag`, the
 hand-written kernel on the card. The (B, F, D) gather that the squared FM
-term and the MLP read stays an index.
+term and the MLP read is `kernels.ops.gather_rows`. Both carry the table's
+gradient by the deterministic scatter (sorted ids, `segment_reduce`).
+`loss_fn` is the reference's clipped-logit binary cross-entropy.
 """
 
 from __future__ import annotations
@@ -67,7 +69,7 @@ def _global_ids(ids: torch.Tensor, cfg: DeepFMConfig) -> torch.Tensor:
 def forward(params: dict, ids: torch.Tensor, cfg: DeepFMConfig) -> torch.Tensor:
     """ids (B, n_fields) per-field categorical ids -> logits (B,)."""
     gids = _global_ids(ids, cfg)
-    emb = params["table"][gids.long()]                   # (B, F, D)
+    emb = kops.gather_rows(params["table"], gids)        # (B, F, D)
 
     # FM second order: 0.5 * ((sum_f v)^2 - sum_f v^2), summed over D
     s = kops.embedding_bag(params["table"], gids, "sum")
@@ -81,6 +83,13 @@ def forward(params: dict, ids: torch.Tensor, cfg: DeepFMConfig) -> torch.Tensor:
         h = torch.relu(h @ lp["w"] + lp["b"])
     deep = h @ params["mlp_out"]
     return lin + fm + deep
+
+
+def loss_fn(params: dict, ids: torch.Tensor, labels: torch.Tensor,
+            cfg: DeepFMConfig) -> torch.Tensor:
+    """Mean binary cross-entropy of the logits clipped to [-30, 30]."""
+    z = forward(params, ids, cfg).clamp(-30, 30)
+    return (z.clamp_min(0) - z * labels + torch.log1p(torch.exp(-z.abs()))).mean()
 
 
 # ---------------------------------------------------------------------------

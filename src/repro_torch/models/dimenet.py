@@ -11,7 +11,9 @@ built on the host (`build_triplets`, numpy, as in the reference).
 The three reductions, triplets -> edges, edges -> nodes and nodes -> graphs,
 are the Combine stage's keyed sum (`core.acc.Combiner.segment`): a stable
 sort of the ids, then `kernels.ops.segment_reduce`, the hand-written kernel
-on the card.
+on the card. The edge and triplet gathers are `kernels.ops.gather_rows`,
+whose backward is the deterministic scatter. `loss_fn` is the reference's
+mean squared error.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import torch.nn.functional as F
 
 from repro_torch._device import resolve_device
 from repro_torch.core.acc import SUM_AGG
+from repro_torch.kernels import ops as kops
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,28 +127,29 @@ def forward(params, node_feat, pos, src, dst, t_kj, t_ji, cfg: DimeNetConfig,
     src_c = src.clamp_max(n - 1).long()
     dst_c = dst.clamp_max(n - 1).long()
 
-    rel = pos[dst_c] - pos[src_c]                                 # (E, 3) r_ji
+    gather = kops.gather_rows
+    rel = gather(pos, dst_c) - gather(pos, src_c)                 # (E, 3) r_ji
     dist = torch.linalg.vector_norm(rel + 1e-9, dim=-1)
     rbf = radial_basis(dist, cfg.n_radial, cfg.cutoff)            # (E, R)
 
     h = node_feat @ params["atom_embed"]                          # (N, d)
-    e_in = torch.cat([h[src_c], h[dst_c], rbf @ params["rbf_embed"]], dim=-1)
+    e_in = torch.cat([gather(h, src_c), gather(h, dst_c), rbf @ params["rbf_embed"]], dim=-1)
     msg = F.silu(e_in @ params["msg_embed"])                      # (E, d)
 
     # triplet geometry: the angle between r_kj (edge e2) and r_ji (edge e1)
     tk = t_kj.clamp_max(m - 1).long()
     tj = t_ji.clamp_max(m - 1)
     valid = (t_kj < m)[:, None]
-    v1 = rel[tk]
-    v2 = rel[tj.long()]
+    v1 = gather(rel, tk)
+    v2 = gather(rel, tj)
     cosang = (v1 * v2).sum(-1) / (torch.linalg.vector_norm(v1, dim=-1)
                                   * torch.linalg.vector_norm(v2, dim=-1)).clamp_min(1e-9)
     theta = torch.arccos(cosang.clamp(-1 + 1e-6, 1 - 1e-6))
-    sbf = (rbf[tk][:, :, None] * angular_basis(theta, cfg.n_spherical)[:, None, :]
+    sbf = (gather(rbf, tk)[:, :, None] * angular_basis(theta, cfg.n_spherical)[:, None, :]
            ).reshape(-1, cfg.n_radial * cfg.n_spherical)          # (T, R*S)
 
     for blk in params["blocks"]:
-        m_kj = F.silu(msg[tk] @ blk["w_kj"])                      # (T, d)
+        m_kj = F.silu(gather(msg, tk) @ blk["w_kj"])              # (T, d)
         if cfg.loop_bilinear:
             # one bilinear slice at a time: peak memory O(T*d), not O(T*B*d)
             parts = []
@@ -168,3 +172,10 @@ def forward(params, node_feat, pos, src, dst, t_kj, t_ji, cfg: DimeNetConfig,
     gi = graph_ids if graph_ids is not None else torch.zeros(
         (n,), dtype=torch.int32, device=node_feat.device)
     return SUM_AGG.segment(node_out, gi, n_graphs) @ params["out2"]
+
+
+def loss_fn(params, node_feat, pos, src, dst, t_kj, t_ji, targets,
+            cfg: DimeNetConfig, graph_ids=None, n_graphs: int = 1) -> torch.Tensor:
+    """Mean squared error of the (n_graphs, n_targets) prediction."""
+    pred = forward(params, node_feat, pos, src, dst, t_kj, t_ji, cfg, graph_ids, n_graphs)
+    return ((pred - targets) ** 2).mean()

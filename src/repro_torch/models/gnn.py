@@ -5,9 +5,12 @@ index: every `jax.ops.segment_sum`/`segment_max` of the reference is the
 Combine stage's keyed reduction (`core.acc.Combiner.segment`), which sorts
 the edge ids stably and runs `kernels.ops.segment_reduce`, the hand-written
 kernel on the card. Edges are (src, dst, w) arrays; sentinel ids (== n) drop
-into a scratch row that is cut off. The reference's sharding hints, remat,
-`loss_fn` and the edge-sharded GatedGCN are the training and distributed
-slices'.
+into a scratch row that is cut off. The gathers of node rows onto edges are
+`kernels.ops.gather_rows`, whose backward is the deterministic scatter; the
+Combine's backward is a gather. `loss_fn` is the reference's masked mean
+negative log-likelihood. The reference's sharding hints, its per-layer
+remat of GatedGCN (which changes memory, not values) and the edge-sharded
+GatedGCN are the distributed slice's.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.core.acc import MAX_VOTE, SUM_AGG
+from repro_torch.kernels import ops as kops
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,7 +45,7 @@ def aggregate(h: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
               wgt: Optional[torch.Tensor], n: int, reduce: str = "sum") -> torch.Tensor:
     """out[i] = reduce_{(j->i) in E} w_ij * h[j]. Sentinel ids (== n) drop
     into the scratch row. h may be (N, D) or (N+1, D)."""
-    hs = h[src.clamp_max(h.shape[0] - 1).long()]
+    hs = kops.gather_rows(h, src.clamp_max(h.shape[0] - 1))
     if wgt is not None:
         hs = hs * wgt[:, None]
     if reduce == "sum":
@@ -139,7 +143,7 @@ def forward(params, feats, src, dst, wgt, cfg: GNNConfig,
         src_c = src.clamp_max(n - 1).long()
         dst_c = dst.clamp_max(n - 1).long()
         for lp in params["layers"]:
-            hi, hj = h[dst_c], h[src_c]
+            hi, hj = kops.gather_rows(h, dst_c), kops.gather_rows(h, src_c)
             e_new = hi @ lp["A"] + hj @ lp["B"] + e @ lp["C"]
             eta = torch.sigmoid(e_new)
             num = aggregate(eta * (hj @ lp["V"]), src, dst, None, n)
@@ -156,3 +160,15 @@ def forward(params, feats, src, dst, wgt, cfg: GNNConfig,
             (n,), dtype=torch.int32, device=feats.device)
         return SUM_AGG.segment(h, gi, n_graphs) @ params["head"]
     return h @ params["head"]
+
+
+def loss_fn(params, feats, src, dst, wgt, labels, cfg: GNNConfig,
+            mask=None, graph_ids=None, n_graphs: int = 1) -> torch.Tensor:
+    """Mean negative log-likelihood of `labels` (over the nodes where `mask`
+    is 1, when given), a float32 scalar."""
+    logits = forward(params, feats, src, dst, wgt, cfg, graph_ids, n_graphs)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, labels[:, None].long())[:, 0]
+    if mask is not None:
+        return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+    return nll.mean()

@@ -13,8 +13,18 @@ reference takes XLA's attention there (`use_flash=False`), the same
 function. `decode_step` keeps the reference's cache branch (masked
 attention against the whole cache, in PyTorch ops, as the reference leaves
 it to XLA). A cache's `len` is a Python int, so no step reads the device
-for it. The sharding hints, per-layer remat, `loss_fn` and the split-kv
-`attn_override` are the training and distributed slices' and are left out.
+for it. The sharding hints and the split-kv `attn_override` are the
+distributed slice's and are left out.
+
+Training: `loss_fn` is the reference's (padded vocab lanes masked to -1e30,
+plus `aux_loss_weight` times the MoE aux loss), differentiated by autograd.
+The embedding lookup is `kernels.ops.gather_rows`, whose backward is the
+deterministic scatter; attention's backward is the flash backward kernel.
+With `cfg.remat`, when a gradient is to be taken, each layer runs under
+`torch.utils.checkpoint` (the reference's per-layer `jax.checkpoint`): its
+activations are recomputed in the backward. The recomputed MoE forward takes
+the same routes, as nothing in it draws random numbers and its sorts are
+stable.
 """
 
 from __future__ import annotations
@@ -23,8 +33,10 @@ import dataclasses
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import resolve_device
+from repro_torch.kernels import ops as kops
 from repro_torch.nn import layers as L
 from repro_torch.nn.moe import MoEConfig, moe_ffn
 
@@ -44,6 +56,8 @@ class TransformerConfig:
     moe: Optional[MoEConfig] = None       # None = dense FFN
     rope_theta: float = 10000.0
     dtype: str = "float32"                # activations and parameters
+    remat: bool = True                    # recompute each layer in the backward
+    aux_loss_weight: float = 0.01
 
     @property
     def dh(self) -> int:
@@ -131,9 +145,12 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
     }
 
 
-def layer_params(params: dict, i: int) -> dict:
-    """Layer i's weights: views into the stacked (L, ...) tensors."""
-    return {k: t[i] for k, t in params["layers"].items()}
+def layer_stack(params: dict) -> list[dict]:
+    """Every layer's weights: views into the stacked (L, ...) tensors by one
+    `unbind` of each (whose backward stacks the L gradients once, where L
+    separate views would each add a gradient of the whole stack)."""
+    per_key = {k: t.unbind(0) for k, t in params["layers"].items()}
+    return [dict(zip(per_key, views)) for views in zip(*per_key.values())]
 
 
 # ---------------------------------------------------------------------------
@@ -163,14 +180,32 @@ def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig):
     """tokens (B, S) -> (logits (B, S, V_pad), aux_loss float32 scalar)."""
     b, s = tokens.shape
     dev = tokens.device
-    x = params["embed"][tokens.long()].to(DTYPES[cfg.dtype])
+    x = kops.gather_rows(params["embed"], tokens).to(DTYPES[cfg.dtype])
     positions = torch.arange(s, device=dev).expand(b, s)
     aux = torch.zeros((), dtype=torch.float32, device=dev)
-    for i in range(cfg.n_layers):
-        x, _, a = _layer(cfg, x, layer_params(params, i), positions)
+    # remat only where a backward will follow (serving's forwards run as is)
+    remat = cfg.remat and torch.is_grad_enabled() and (
+        x.requires_grad or any(t.requires_grad for t in params["layers"].values()))
+    for lp in layer_stack(params):
+        if remat:
+            x, _, a = checkpoint(_layer, cfg, x, lp, positions, use_reentrant=False)
+        else:
+            x, _, a = _layer(cfg, x, lp, positions)
         aux = aux + a
     x = L.rms_norm(x, params["final_norm"])
     return x @ params["lm_head"], aux
+
+
+def loss_fn(params: dict, tokens: torch.Tensor, labels: torch.Tensor,
+            cfg: TransformerConfig) -> torch.Tensor:
+    """Mean token cross-entropy over the real vocab, plus the weighted aux
+    loss: a float32 scalar."""
+    logits, aux = forward(params, tokens, cfg)
+    if cfg.padded_vocab != cfg.vocab:
+        # mask the padded vocab lanes out of the softmax
+        pad = torch.arange(cfg.padded_vocab, device=logits.device) >= cfg.vocab
+        logits = torch.where(pad, -1e30, logits)
+    return L.cross_entropy(logits, labels) + cfg.aux_loss_weight * aux
 
 
 # ---------------------------------------------------------------------------
@@ -195,12 +230,12 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
     last position (B, 1, V_pad), the new cache)."""
     b, s = tokens.shape
     dev = tokens.device
-    x = params["embed"][tokens.long()].to(DTYPES[cfg.dtype])
+    x = kops.gather_rows(params["embed"], tokens).to(DTYPES[cfg.dtype])
     pos0 = cache["len"]
     positions = pos0 + torch.arange(s, device=dev).expand(b, s)
     nks, nvs = [], []
-    for i in range(cfg.n_layers):
-        x, (nk, nv), _ = _layer(cfg, x, layer_params(params, i), positions,
+    for i, lp in enumerate(layer_stack(params)):
+        x, (nk, nv), _ = _layer(cfg, x, lp, positions,
                                 kv_cache=(cache["k"][i], cache["v"][i]), cache_len=pos0)
         nks.append(nk)
         nvs.append(nv)

@@ -15,6 +15,14 @@ to the activations' dtype: in float32 the combine is the reference's sum in
 another order; in bfloat16 it rounds once, at the end (within 2^-9 of the
 float32 sum, relative), where a bfloat16 scatter-add rounds after each of
 the top_k adds.
+
+Gradients flow as in the reference: through the router's softmax and the
+normalised top-k weights, the expert products, the combine (whose backward
+is a gather) and the aux loss's mean router probability. The two gathers
+whose backward is a scatter-add, the tokens into the buffer (`x[st_]`) and
+the expert outputs back to the pairs (`ye[se, rank]`, flattened to one
+index), are `kernels.ops.gather_rows`, whose backward is the deterministic
+scatter.
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.acc import SUM_AGG
+from repro_torch.kernels import ops as kops
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,16 +84,16 @@ def moe_ffn(x: torch.Tensor, p: dict, cfg: MoEConfig):
     # ---- sort-based dispatch into an (E, C + 1, d) buffer, slot C dropped --
     se, st_, order, rank_c, keep = dispatch(topi, e, c)
     sw = topv.reshape(-1)[order]
-    buf = torch.zeros((e, c + 1, d), dtype=x.dtype, device=x.device)
-    buf[se, rank_c] = x[st_]
-    xe = buf[:, :c]
+    buf = torch.zeros((e * (c + 1), d), dtype=x.dtype, device=x.device)
+    buf[se * (c + 1) + rank_c] = kops.gather_rows(x, st_)
+    xe = buf.view(e, c + 1, d)[:, :c]
 
     # ---- expert products ------------------------------------------------
     h = F.silu(torch.bmm(xe, p["we1"])) * torch.bmm(xe, p["we3"])
     ye = torch.bmm(h, p["we2"])                                # (E, C, d)
 
     # ---- combine --------------------------------------------------------
-    gathered = ye[se, rank_c.clamp_max(c - 1)]
+    gathered = kops.gather_rows(ye.reshape(e * c, d), se * c + rank_c.clamp_max(c - 1))
     gathered = torch.where(keep[:, None], gathered * sw[:, None].to(x.dtype), 0.0)
     out = SUM_AGG.segment(gathered.float(), st_, t)
 

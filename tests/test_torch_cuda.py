@@ -1078,3 +1078,146 @@ def test_acclint_trace_flags_a_host_scalar_write(cuda):
     mask = torch.ones(16, dtype=torch.bool, device=cuda)
     assert "ACC-J102" in {f.rule for f in trace_check.check_step("write", lambda: (write, mask))}
     assert trace_check.check_step("fill", lambda: (fill, mask)) == []
+
+
+def _bwd_case(dev, b, hq, hkv, sq, skv, d, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(s)).to(dev)
+            for s in ((b, hq, sq, d), (b, hkv, skv, d), (b, hkv, skv, d), (b, hq, sq, d))]
+
+
+def _exact_grads(q, k, v, dout, causal):
+    """float64 autograd of the plain attention on the (rounded) inputs."""
+    qq, kk, vv = (t.double().requires_grad_() for t in (q, k, v))
+    out = tfa.attention_plain(qq, kk, vv, causal)
+    return torch.autograd.grad(out, (qq, kk, vv), dout.double())
+
+
+BWD_SHAPES = [(1, 2, 2, 32, 32, 16), (2, 4, 2, 70, 133, 12), (1, 8, 1, 100, 100, 64),
+              (2, 4, 4, 1, 37, 128), (1, 4, 2, 129, 200, 128), (2, 2, 1, 64, 64, 64),
+              (1, 16, 8, 257, 257, 64)]
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d", BWD_SHAPES)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_matches_float64_autograd(cuda, b, hq, hkv, sq, skv, d, causal,
+                                                      dtype):
+    """The backward kernel against float64 autograd of `attention_plain` on
+    the same inputs (float32: BWD_F32_ERR of the largest entry; bfloat16:
+    BWD_BF16_REL_ERR in relative norm), one launch a call, two calls
+    bit-equal, and equal to the plain version's tolerance too."""
+    q, k, v, dout = (t.to(dtype) for t in _bwd_case(cuda, b, hq, hkv, sq, skv, d, sq * d + skv))
+    out = tfa.flash_attention_cuda(q, k, v, causal)
+    ops.reset_launches()
+    got = tfa.flash_attention_bwd_cuda(q, k, v, out, dout, causal)
+    assert ops.launch_counts()[tfa.BACKWARD] == 1
+    again = tfa.flash_attention_bwd_cuda(q, k, v, out, dout, causal)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    for a, x in zip(got, _exact_grads(q, k, v, dout, causal)):
+        assert a.dtype == dtype and a.shape == x.shape
+        if dtype == torch.float32:
+            assert float((a.double() - x).abs().max() / x.abs().max()) <= tfa.BWD_F32_ERR
+        else:
+            assert float((a.double() - x).norm() / x.norm()) <= tfa.BWD_BF16_REL_ERR
+
+
+def test_attention_op_backward_launches_the_kernel(cuda):
+    """`ops.attention` on tensors that need a gradient: forward and backward
+    kernels launch once each, and the gradients equal the wrapper's."""
+    q, k, v, dout = (t.float() for t in _bwd_case(cuda, 2, 8, 2, 96, 96, 64, 5))
+    qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+    ops.reset_launches()
+    out = ops.attention(qq, kk, vv, True)
+    grads = torch.autograd.grad(out, (qq, kk, vv), dout)
+    counts = ops.launch_counts()
+    assert counts[tfa.TF32] == 1 and counts[tfa.BACKWARD] == 1
+    want = tfa.flash_attention_bwd_cuda(q, k, v, out.detach(), dout, True)
+    assert all(torch.equal(a, c) for a, c in zip(grads, want))
+
+
+@pytest.mark.parametrize("shape,v,d", [((4096,), 512, 64), ((8, 1024), 50, 16), ((300, 7), 9, 1)])
+def test_gather_rows_backward_deterministic_on_the_card(cuda, shape, v, d):
+    """The scatter of `gather_rows`'s gradient runs on segment_reduce, is
+    bit-equal from call to call, and within float32 rounding of autograd's
+    index backward (hot rows take thousands of adds)."""
+    rng = np.random.default_rng(v)
+    idx = torch.from_numpy(rng.integers(-v, v, shape)).to(cuda)
+    table = torch.from_numpy(rng.standard_normal((v, d)).astype(np.float32)).to(cuda)
+    g = torch.from_numpy(rng.standard_normal(shape + (d,)).astype(np.float32)).to(cuda)
+    runs = []
+    for _ in range(2):
+        t = table.clone().requires_grad_()
+        ops.reset_launches()
+        (ops.gather_rows(t, idx) * g).sum().backward()
+        assert ops.launch_counts()["segment_reduce"] == 1
+        runs.append(t.grad)
+    assert torch.equal(runs[0], runs[1])
+    t = table.clone().requires_grad_()
+    (t[idx] * g).sum().backward()
+    torch.testing.assert_close(runs[0], t.grad, rtol=1e-5, atol=1e-4)
+
+
+def test_segment_and_bag_backwards_on_the_card(cuda):
+    """The sum backwards of segment_reduce (a gather) and embedding_bag (the
+    deterministic scatter, negative ids wrapped) against autograd of their
+    plain versions."""
+    rng = np.random.default_rng(3)
+    vals = torch.from_numpy(rng.standard_normal((500, 8)).astype(np.float32)).to(cuda)
+    ids = torch.from_numpy(np.sort(rng.integers(-2, 70, 500)).astype(np.int32)).to(cuda)
+    g = torch.from_numpy(rng.standard_normal((64, 8)).astype(np.float32)).to(cuda)
+    a = vals.clone().requires_grad_()
+    (ops.segment_reduce(a, ids, 64) * g).sum().backward()
+    b = vals.clone().requires_grad_()
+    (tsr.segment_reduce_plain(b, ids, 64) * g).sum().backward()
+    assert torch.equal(a.grad, b.grad)
+    table = torch.from_numpy(rng.standard_normal((100, 10)).astype(np.float32)).to(cuda)
+    # ids in [-V, V): the plain version's clamp never acts (an id the
+    # forward clamps gets no gradient, as under jax.grad; CPU tests)
+    idx = torch.from_numpy(rng.integers(-100, 100, (256, 39)).astype(np.int32)).to(cuda)
+    gb = torch.from_numpy(rng.standard_normal((256, 10)).astype(np.float32)).to(cuda)
+    for mode in ("sum", "mean"):
+        a = table.clone().requires_grad_()
+        ops.reset_launches()
+        (ops.embedding_bag(a, idx, mode) * gb).sum().backward()
+        assert ops.launch_counts()["embedding_bag"] == 1
+        b = table.clone().requires_grad_()
+        (tbag.embedding_bag_plain(b, idx, mode) * gb).sum().backward()
+        torch.testing.assert_close(a.grad, b.grad, rtol=1e-5, atol=1e-4)
+
+
+def test_reduced_moe_training_step_on_the_card_equals_the_cpu(cuda):
+    """One `train_step` of the reduced MoE config in float32 on the card
+    against the CPU from the same weights and batch: the gradients within
+    1e-3 of each leaf's largest entry (the TF32 flash kernels and other
+    sums), the loss within 1e-5; the step launches the flash forward (twice
+    a layer, with remat) and backward and segment_reduce. The routes agree: float32, no gate near a
+    tie."""
+    from repro_torch import configs
+    from repro_torch import tree as T
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import adamw
+
+    cfg = configs.get("granite-moe-1b-a400m").make_reduced()
+    p = tfm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(0)
+    x, y = (torch.from_numpy(rng.integers(0, cfg.vocab, (2, 40)).astype(np.int32))
+            for _ in range(2))
+    grads, losses = [], []
+    for dev in ("cpu", cuda):
+        tp = train.trainable(T.map_leaves(lambda t: t.clone().to(dev), p))
+        g = torch.autograd.grad(tfm.loss_fn(tp, x.to(dev), y.to(dev), cfg), T.leaves(tp))
+        grads.append([t.cpu() for t in g])
+        opt_cfg = adamw.AdamWConfig(lr=1e-3)
+        ops.reset_launches()
+        m = train.train_step(tp, adamw.init(tp, opt_cfg), x.to(dev), y.to(dev), cfg, opt_cfg)
+        losses.append(float(m["loss"]))
+    counts = ops.launch_counts()
+    # remat: each layer's forward runs again in the backward
+    assert counts["flash_attention_f32"] == 2 * cfg.n_layers
+    assert counts["flash_attention_bwd"] == cfg.n_layers
+    assert counts["segment_reduce"] > 0
+    assert losses[1] == pytest.approx(losses[0], rel=1e-5)
+    for a, b in zip(*grads):
+        assert float((a - b).abs().max()) <= 1e-3 * float(a.abs().max())

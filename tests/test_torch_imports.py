@@ -64,6 +64,12 @@ def test_package_imports_without_jax():
         "from repro_torch.nn import moe\n"
         "from repro_torch.models import transformer, deepfm, gnn, dimenet\n"
         "from repro_torch.launch import serve, train\n"
+        "from repro_torch import optim, data, checkpoint, distributed, tree\n"
+        "from repro_torch.optim import adamw\n"
+        "from repro_torch.data import pipelines\n"
+        "from repro_torch.checkpoint import manager\n"
+        "from repro_torch.distributed import fault\n"
+        "from repro_torch.graph import sampler\n"
         "assert len(configs.cells()) == 40\n"
         "cfg = train.tiny_config(configs.get('granite-moe-1b-a400m').make_config(),\n"
         "                        d_model=64, n_layers=1, vocab=64)\n"

@@ -48,6 +48,7 @@ def test_both_flash_kernels_and_frontier_pack_are_registered():
     assert _build.KERNELS["flash_attention_f32"] == "flash_attention"
     assert _build.KERNELS["frontier_pack"] == "frontier_pack"
     assert _build.KERNELS["ell_combine_batched"] == "ell_combine_batched"
+    assert _build.KERNELS["flash_attention_bwd"] == "flash_attention_bwd"
     assert set(_build.LAUNCHES) == set(_build.KERNELS)
     for source in _build.SOURCES:
         assert (_build.CSRC / f"{source}.cu").is_file(), source
@@ -86,6 +87,7 @@ def _c_params(source: str, symbol: str) -> list:
     ("embedding_bag", "embedding_bag_launch", tbag._ARGTYPES),
     ("flash_attention", "flash_attention_launch", tfa._ARGTYPES),
     ("flash_attention_wgmma", "flash_attention_wgmma_launch", tfa._WGMMA_ARGTYPES),
+    ("flash_attention_bwd", "flash_attention_bwd_launch", tfa._BWD_ARGTYPES),
     ("flash_attention_wgmma", "flash_attention_wgmma_probe", _probe().PROBE_ARGTYPES)])
 def test_ctypes_argtypes_match_the_c_entry_point(source, symbol, argtypes):
     """Same arity, and a pointer, int or float in each place: ctypes would

@@ -30,10 +30,9 @@ from repro_torch.models import dimenet as tdmn
 from repro_torch.models import gnn as tgnn
 
 RTOL, ATOL = 1e-4, 1e-5
-#: config fields of the reference that the port leaves out: XLA's remat and
-#: sharding hints, the training loss weight, and two GNN fields its forward
-#: never reads
-DROPPED = {"TransformerConfig": {"remat", "tp_constrain", "aux_loss_weight"},
+#: config fields of the reference that the port leaves out: XLA's sharding
+#: hints, and two GNN fields its forward never reads
+DROPPED = {"TransformerConfig": {"tp_constrain"},
            "GNNConfig": {"eps_learnable", "dropout"}}
 
 
