@@ -10,9 +10,12 @@ Phases (any failure exits non-zero; nothing is caught):
                  the wgmma flash library's SASS (cuobjdump -sass) must hold
                  HGMMA (wgmma) and UTMALDG (TMA loads), the TF32 flash
                  library's TF32 tensor-core instructions (HMMA...TF32),
-                 ell_combine's and ell_spmm's LDG.E.128 (16-byte loads);
-                 registers and spills of the TF32 flash kernel, ell_spmm
-                 and ell_combine_batched (ptxas -v), the main path's
+                 ell_combine's and ell_spmm's LDG.E.128 (16-byte loads),
+                 the wgmma flash backward's HGMMA and UTMALDG (its
+                 USETMAXREG, setmaxnreg, counted); registers and spills of
+                 every instance of the wgmma flash backward, and of the
+                 TF32 flash kernel, ell_spmm and ell_combine_batched
+                 (ptxas -v), the main path's
                  instances by name (ell_combine_batched: both routes at
                  Q = 8 and 64 for copy/sum, add_w/min, hop/min, mul_w/sum);
   3. kernels   — each CUDA kernel against its plain PyTorch version on the
@@ -253,14 +256,20 @@ Phases (any failure exits non-zero; nothing is caught):
                  ell_combine_batched;
  14. training  — the training path (`repro_torch.launch.train`, `optim`,
                  `data`, `checkpoint`, the models' `loss_fn`s): (a) the
-                 flash backward (`csrc/flash_attention_bwd.cu`) against
-                 float64 autograd of `attention_plain` on the same inputs
-                 over BWD_SWEEP (Sq and Skv ragged across the tiles, Sq <
-                 Skv, Hq / Hkv 1 to 8, Dh 12 to 128), float32 within
+                 flash backward that `route_bwd` picks
+                 (`csrc/flash_attention_bwd_wgmma.cu` for bfloat16 with
+                 Dh % 8 == 0, given the wgmma forward's lse;
+                 `csrc/flash_attention_bwd.cu` for the rest), one launch a
+                 call under its own counter, against float64 autograd of
+                 `attention_plain` on the same inputs over BWD_SWEEP (Sq
+                 and Skv ragged across the tiles, Sq < Skv and Sq > Skv,
+                 Hq / Hkv 1 to 8, Dh 12 to 128), float32 within
                  BWD_F32_ERR of the largest entry, bfloat16 within
-                 BWD_BF16_REL_ERR in relative norm, causal and not, every
-                 call repeated bit-equal, and as a control the gradients
-                 with key 0's row of dK and dV dropped must miss;
+                 BWD_BF16_REL_ERR in relative norm, the wgmma kernel also
+                 within BWD_ROUNDED_REL_ERR of `attention_bwd_rounded`,
+                 causal and not, every call repeated bit-equal, and as a
+                 control the gradients with key 0's row of dK and dV
+                 dropped must miss both;
                  (b) the gradient scatters (`gather_rows`, the sum
                  backwards of segment_reduce and embedding_bag) at the main
                  path's shapes, bit-equal on a repeat and within the
@@ -278,13 +287,16 @@ Phases (any failure exits non-zero; nothing is caught):
                  gcn-cora, gatedgcn, gin-tu and DimeNet at phase 12's
                  widths, counted, their first gradients against the
                  kernels' fold-order plain route in float64; then the
-                 flash backward at granite-moe's layer (bf16 and float32)
-                 and granite-3-8b's, held against float64 autograd and
-                 timed beside its bound, plain version and the backward of
+                 flash backward at BWD_TIMED's shapes (granite-moe's layer
+                 in bf16 and float32, granite-3-8b's, (d)'s 100m layer in
+                 float32), held against float64 autograd and timed beside
+                 its bound, plain version and the backward of
                  scaled_dot_product_attention (query heads permuted to the
-                 port's h % Hkv map);
- 15. report    — the `kernels` JSON line (all ten kernels, flash as two
-                 forward routes and a backward; ell_combine, the batched
+                 port's h % Hkv map); (c) must launch only the wgmma
+                 backward, once a layer a step, and (d) only the CUDA-core
+                 one, likewise;
+ 15. report    — the `kernels` JSON line (all eleven kernels, flash as two
+                 forward routes and two backward routes; ell_combine, the batched
                  pull, segment_reduce and frontier_pack count phases 9, 10,
                  11 and 13's launches too, flash, segment_reduce and
                  embedding_bag phases 12 and 14's (with the launches of
@@ -3714,10 +3726,11 @@ def acclint_phase(dev, ops, g) -> collections.Counter:
 # ---------------------------------------------------------------------------
 
 #: the backward sweep: (B, Hq, Hkv, Sq, Skv, Dh), ragged across the 64-row
-#: tiles, Sq < Skv, Hq / Hkv of 1, 2, 4 and 8, Dh 12, 16, 64 and 128
+#: tiles, Sq < Skv and (last) Sq > Skv, Hq / Hkv of 1, 2, 4 and 8, Dh 12,
+#: 16, 64, 96 and 128
 BWD_SWEEP = [(1, 1, 1, 37, 37, 12), (2, 2, 1, 70, 133, 16), (1, 4, 2, 129, 200, 64),
              (1, 8, 8, 64, 64, 128), (2, 8, 2, 100, 257, 64), (1, 8, 4, 1, 77, 128),
-             (1, 4, 1, 257, 513, 16), (1, 8, 1, 65, 130, 64)]
+             (1, 4, 1, 257, 513, 16), (1, 8, 1, 65, 130, 64), (1, 4, 2, 300, 90, 96)]
 #: (c): granite-moe-1b-a400m at its published config, `main`'s batch at S 1024
 TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "granite-moe-1b-a400m", 8, 1024, 10
 #: (d): `main` end to end on the reference's 100m preset, resumed from step 10
@@ -3736,64 +3749,96 @@ FAMILY_STEPS = 5
 SCATTER_CASES = (("gather_rows", 51200, 1024, (8, 1024)),
                  ("segment_reduce", 8192, 1024, 65536),
                  ("embedding_bag", 3_900_000, 10, (4096, 39)))
-#: the flash backward's timed shapes: granite-moe-1b-a400m's layer (the
-#: main path's, in bf16 and float32) and granite-3-8b's
+#: the flash backward's timed shapes: granite-moe-1b-a400m's layer ((c)'s,
+#: in bf16: the wgmma backward; and in float32), granite-3-8b's, and (d)'s
+#: 100m layer in float32 (the CUDA-core backward's main path); each
+#: kernel's row is its first shape
 BWD_TIMED = (("granite-moe", (8, 16, 8, 1024, 64), torch.bfloat16),
+             ("100m float32", (8, 12, 6, 128, 64), torch.float32),
              ("granite-moe float32", (8, 16, 8, 1024, 64), torch.float32),
              ("granite-3-8b", (2, 32, 8, 1024, 128), torch.bfloat16))
 TRAIN_KERNELS = ("flash_attention", "flash_attention_f32", "flash_attention_bwd",
-                 "segment_reduce", "embedding_bag")
+                 "flash_attention_bwd_wgmma", "segment_reduce", "embedding_bag")
 #: the kernels (d)'s float32 MoE run must launch, read from its summary line
 MAIN_KERNELS = ("flash_attention_f32", "flash_attention_bwd", "segment_reduce")
 
 
 def exact_attention_grads(fa, q, k, v, dout, causal: bool):
-    """float64 autograd of `attention_plain` on the (rounded) inputs."""
-    qq, kk, vv = (t.double().requires_grad_() for t in (q, k, v))
+    """float64 autograd of `attention_plain` on the (rounded) inputs. Under
+    `causal` with Sq > Skv the first Sq - Skv rows see no key: autograd
+    gives them NaN and nothing to dk and dv, so they are left out (the
+    sweep checks apart that the kernels' dq is 0 there)."""
+    lo = max(0, q.shape[2] - k.shape[2]) if causal else 0
+    qq, kk, vv = (t.double().requires_grad_() for t in (q[:, :, lo:], k, v))
     out = fa.attention_plain(qq, kk, vv, causal)
-    return torch.autograd.grad(out, (qq, kk, vv), dout.double())
+    return torch.autograd.grad(out, (qq, kk, vv), dout[:, :, lo:].double())
 
 
 def bwd_err(fa, got, exact) -> float:
     """The backward's error as its tolerance reads it: float32, the largest
     |a - x| over the largest |x| of each gradient; bfloat16, the relative
-    norm."""
+    norm. A dq with more rows than the exact one is compared on its last
+    rows (`exact_attention_grads`)."""
+    got = (got[0][:, :, got[0].shape[2] - exact[0].shape[2]:],) + tuple(got[1:])
     if got[0].dtype == torch.float32:
         return max(float((a.double() - x).abs().max() / x.abs().max()) for a, x in zip(got, exact))
     return max(float((a.double() - x).norm() / x.norm()) for a, x in zip(got, exact))
 
 
-def sweep_flash_bwd(dev, rng, fa, ops) -> float:
-    """(a) The flash backward against float64 autograd of the plain
-    attention on the same inputs, both dtypes, causal and not; each call
-    repeated and bit-equal. The control: the kernel's gradients with key
-    0's row of dK and dV set to 0 must miss the tolerance. Returns the worst
-    float32 |kernel - exact|."""
-    worst_abs, worst = 0.0, {torch.float32: 0.0, torch.bfloat16: 0.0}
-    least_control = float("inf")
+def rounded_err(got, rounded) -> float:
+    """The wgmma backward's distance from `attention_bwd_rounded`: the
+    largest relative norm over (dq, dk, dv)."""
+    return max(rel_err(a, r) for a, r in zip(got, rounded))
+
+
+def forward_for_bwd(fa, q, k, v, causal: bool):
+    """(out, lse) of the flash forward as training runs it: the wgmma
+    forward writes lse for the wgmma backward; else lse is None."""
+    if fa.route_bwd(q.dtype, q.shape[-1]) == fa.BACKWARD_WGMMA:
+        return fa.flash_attention_cuda(q, k, v, causal, with_lse=True)
+    return fa.flash_attention_cuda(q, k, v, causal), None
+
+
+def sweep_flash_bwd(dev, rng, fa, ops) -> dict:
+    """(a) The backward that `route_bwd` picks, one launch a call under its
+    own counter, against float64 autograd of the plain attention on the
+    same inputs, both dtypes, causal and not; the wgmma kernel also against
+    `attention_bwd_rounded`; each call repeated and bit-equal; a row that
+    sees nothing gets a zero dq. The control: the kernel's gradients with
+    key 0's row of dK and dV set to 0 must miss every tolerance. Returns
+    each kernel's worst max |kernel - reference| (float64 autograd for the
+    CUDA-core kernel, `attention_bwd_rounded` for the wgmma one)."""
+    worst_abs = {fa.BACKWARD: 0.0, fa.BACKWARD_WGMMA: 0.0}
+    worst = {fa.BACKWARD: 0.0, fa.BACKWARD_WGMMA: 0.0, "rounded": 0.0}
+    least_control = {"exact": float("inf"), "rounded": float("inf")}
     for b, hq, hkv, sq, skv, d in BWD_SWEEP:
         base = [rng.standard_normal(s) for s in ((b, hq, sq, d), (b, hkv, skv, d),
                                                   (b, hkv, skv, d), (b, hq, sq, d))]
         for dt in (torch.float32, torch.bfloat16):
             q, k, v, dout = (torch.from_numpy(x).to(dev).to(dt) for x in base)
             tol = fa.BWD_F32_ERR if dt == torch.float32 else fa.BWD_BF16_REL_ERR
+            kernel = fa.route_bwd(dt, d)
             for causal in (True, False):
-                out = fa.flash_attention_cuda(q, k, v, causal)
+                out, lse = forward_for_bwd(fa, q, k, v, causal)
                 ops.reset_launches()
-                got = fa.flash_attention_bwd_cuda(q, k, v, out, dout, causal)
-                if ops.launch_counts()[fa.BACKWARD] != 1:
-                    raise AssertionError("the flash backward did not launch once")
-                again = fa.flash_attention_bwd_cuda(q, k, v, out, dout, causal)
-                what = f"flash backward B={b} Hq={hq} Hkv={hkv} Sq={sq} Skv={skv} D={d} {dt} {causal=}"
+                got = fa.flash_attention_bwd_cuda(q, k, v, out, dout, causal, lse)
+                counts = ops.launch_counts()
+                if counts[kernel] != 1 or sum(counts.values()) != 1:
+                    raise AssertionError(f"the flash backward did not launch {kernel} alone, "
+                                         f"once: {counts}")
+                again = fa.flash_attention_bwd_cuda(q, k, v, out, dout, causal, lse)
+                what = (f"{kernel} B={b} Hq={hq} Hkv={hkv} Sq={sq} Skv={skv} D={d} {dt} "
+                        f"{causal=}")
                 if not all(bit_equal(x, y) for x, y in zip(got, again)):
                     raise AssertionError(f"{what}: two calls differ")
                 exact = exact_attention_grads(fa, q, k, v, dout, causal)
+                lo = sq - exact[0].shape[2]
+                if bool(got[0][:, :, :lo].any()):
+                    raise AssertionError(f"{what}: a row that sees nothing has a nonzero dq")
                 e = bwd_err(fa, got, exact)
                 if not e <= tol:
                     raise AssertionError(f"{what}: error {e:.3g} > {tol}")
-                worst[dt] = max(worst[dt], e)
-                if dt == torch.float32:
-                    worst_abs = max(worst_abs, max(abs_err(a.double(), x) for a, x in zip(got, exact)))
+                worst[kernel] = max(worst[kernel], e)
                 dropped = [x.clone() for x in got]
                 for x in dropped[1:]:
                     x[:, :, 0] = 0
@@ -3801,13 +3846,36 @@ def sweep_flash_bwd(dev, rng, fa, ops) -> float:
                 if not control > tol:
                     raise AssertionError(f"{what}: with key 0's row of dK and dV dropped the "
                                          f"error is {control:.3g}, within the tolerance")
-                least_control = min(least_control, control / tol)
+                least_control["exact"] = min(least_control["exact"], control / tol)
+                if kernel == fa.BACKWARD:
+                    if dt == torch.float32:
+                        worst_abs[kernel] = max(worst_abs[kernel], max(
+                            abs_err(a.double()[:, :, a.shape[2] - x.shape[2]:], x)
+                            for a, x in zip(got, exact)))
+                    continue
+                rounded = fa.attention_bwd_rounded(q, k, v, out, dout, causal)
+                r = rounded_err(got, rounded)
+                if not r <= fa.BWD_ROUNDED_REL_ERR:
+                    raise AssertionError(f"{what}: {r:.3g} from attention_bwd_rounded > "
+                                         f"{fa.BWD_ROUNDED_REL_ERR}")
+                worst["rounded"] = max(worst["rounded"], r)
+                worst_abs[kernel] = max(worst_abs[kernel], max(
+                    abs_err(a.float(), x.float()) for a, x in zip(got, rounded)))
+                control = rounded_err(dropped, rounded)
+                if not control > fa.BWD_ROUNDED_REL_ERR:
+                    raise AssertionError(f"{what}: with key 0's row of dK and dV dropped it is "
+                                         f"{control:.3g} from attention_bwd_rounded")
+                least_control["rounded"] = min(least_control["rounded"],
+                                               control / fa.BWD_ROUNDED_REL_ERR)
     log(f"[14 training] (a) flash backward sweep ({len(BWD_SWEEP)} shapes x 2 dtypes x causal "
-        f"and not) against float64 autograd of attention_plain: float32 worst {worst[torch.float32]:.3g} "
-        f"of the largest entry (limit {fa.BWD_F32_ERR}), bfloat16 worst relative norm "
-        f"{worst[torch.bfloat16]:.3g} (limit {fa.BWD_BF16_REL_ERR}); every call bit-equal on a "
-        f"repeat; with key 0's row of dK and dV dropped, at least {least_control:.3g} times "
-        "the tolerance")
+        f"and not) against float64 autograd of attention_plain: {fa.BACKWARD} (float32 and "
+        f"bf16 with Dh % 8 != 0) worst {worst[fa.BACKWARD]:.3g} (float32: of the largest entry, "
+        f"limit {fa.BWD_F32_ERR}; bf16: relative norm, limit {fa.BWD_BF16_REL_ERR}), "
+        f"{fa.BACKWARD_WGMMA} (bf16) worst relative norm {worst[fa.BACKWARD_WGMMA]:.3g} (limit "
+        f"{fa.BWD_BF16_REL_ERR}) and {worst['rounded']:.3g} from attention_bwd_rounded (limit "
+        f"{fa.BWD_ROUNDED_REL_ERR}); every call bit-equal on a repeat; with key 0's row of dK "
+        f"and dV dropped, at least {least_control['exact']:.3g} times the float64 tolerance "
+        f"and {least_control['rounded']:.3g} times the rounded one")
     return worst_abs
 
 
@@ -3951,9 +4019,14 @@ def granite_moe_training(dev, ops) -> collections.Counter:
         f"{dict(launches)}")
     if not (losses[-1] < losses[0] and all(np.isfinite(losses))):
         raise AssertionError(f"{TRAIN_ARCH}: the loss did not fall: {losses}")
-    for k in ("flash_attention", "flash_attention_bwd", "segment_reduce"):
+    for k in ("flash_attention", "flash_attention_bwd_wgmma", "segment_reduce"):
         if not launches[k]:
             raise AssertionError(f"{TRAIN_ARCH} training did not launch {k}")
+    if (launches["flash_attention_bwd_wgmma"] != cfg.n_layers * TRAIN_STEPS
+            or launches["flash_attention_bwd"]):
+        raise AssertionError(f"{TRAIN_ARCH} training: the backward should launch the wgmma "
+                             f"kernel once a layer a step and the CUDA-core one never: "
+                             f"{dict(launches)}")
     x, y = batches[-1]
     leaves = T.leaves(params)
     runs = []
@@ -3982,6 +4055,8 @@ def main_resume(root: Path) -> collections.Counter:
     must hold every kernel of MAIN_KERNELS."""
     import shutil
 
+    from repro_torch.launch import train
+
     ckpt = root / "build" / "train_ckpt"
     shutil.rmtree(ckpt, ignore_errors=True)
     steps = int(MAIN_ARGV[MAIN_ARGV.index("--steps") + 1])
@@ -4007,6 +4082,13 @@ def main_resume(root: Path) -> collections.Counter:
             missing = [k for k in MAIN_KERNELS if not launches[k]]
             if missing:
                 raise AssertionError(f"the straight run launched no {missing}: {dict(launches)}")
+            layers = train.preset_config(MAIN_ARGV[MAIN_ARGV.index("--arch") + 1],
+                                         MAIN_ARGV[MAIN_ARGV.index("--preset") + 1]).n_layers
+            if launches["flash_attention_bwd"] != layers * steps or launches[
+                    "flash_attention_bwd_wgmma"]:
+                raise AssertionError(f"the float32 run should launch the CUDA-core backward "
+                                     f"once a layer a step and the wgmma one never: "
+                                     f"{dict(launches)}")
     if f"[resume] from step {mid}" not in outs[1]:
         raise AssertionError(f"the second run did not resume from step {mid}")
     with np.load(ckpt / "straight" / "arrays.npz") as a, \
@@ -4128,22 +4210,26 @@ def family_training(dev, ops, sr, bag, fa) -> collections.Counter:
     return launches
 
 
-def time_flash_bwd(dev, fa, report, worst_abs: float, launches: int) -> None:
-    """The flash backward's row: timed at granite-moe-1b-a400m's layer
-    (8, 16, 1024, 64) in bf16 (and float32), beside its plain version, its
+def time_flash_bwd(dev, fa, report, worst_abs: dict, launches) -> None:
+    """The flash backward's rows, timed at BWD_TIMED's shapes by the kernel
+    that `route_bwd` picks (given the wgmma forward's lse where it is the
+    wgmma one), beside its plain version (`attention_bwd_rounded` for the
+    wgmma kernel, `attention_bwd_plain` for the CUDA-core one), its
     operations bound (five products over the causal pairs) and the backward
     of scaled_dot_product_attention with the query heads permuted so that
     the library's h // group map reads the kv head the port's h % Hkv map
-    reads; then at granite-3-8b's layer (2, 32 / 8, 1024, 128). At each
-    shape one call's (dq, dk, dv) is held against float64 autograd of the
-    plain attention, as the sweep holds them (`bwd_err`)."""
+    reads. At each shape one call's (dq, dk, dv) is held against float64
+    autograd of the plain attention, as the sweep holds them (`bwd_err`),
+    and the wgmma kernel's also against `attention_bwd_rounded`. Each
+    kernel's first shape is its row; `launches` are the main path's."""
     gen = torch.Generator(device=dev).manual_seed(15)
-    rows = {}
+    rows = {fa.BACKWARD: {}, fa.BACKWARD_WGMMA: {}}
     for label, (b, hq, hkv, s, d), dt in BWD_TIMED:
         q = torch.randn(b, hq, s, d, device=dev, generator=gen).to(dt)
         k, v = (torch.randn(b, hkv, s, d, device=dev, generator=gen).to(dt) for _ in range(2))
         dout = torch.randn(b, hq, s, d, device=dev, generator=gen).to(dt)
-        out = fa.flash_attention_cuda(q, k, v, True)
+        kernel = fa.route_bwd(dt, d)
+        out, lse = forward_for_bwd(fa, q, k, v, True)
         pairs = b * hq * s * (s + 1) // 2
         nbytes = (3 * q.numel() + 2 * k.numel() + q.numel() + 2 * k.numel()) * q.element_size()
         # five products over the causal pairs; float32 as three TF32 products
@@ -4159,33 +4245,49 @@ def time_flash_bwd(dev, fa, report, worst_abs: float, launches: int) -> None:
         if not rel_err(back, out) <= fa.BF16_REL_ERR:
             raise AssertionError("the permuted library attention is not the port's")
         dl = dout[:, perm].contiguous()
-        got = fa.flash_attention_bwd_cuda(q, k, v, out, dout, True)
+        got = fa.flash_attention_bwd_cuda(q, k, v, out, dout, True, lse)
         exact = exact_attention_grads(fa, q, k, v, dout, True)
         err, tol = bwd_err(fa, got, exact), (fa.BWD_F32_ERR if not bf16 else fa.BWD_BF16_REL_ERR)
-        if not bf16:
-            worst_abs = max(worst_abs, max(abs_err(a.double(), x) for a, x in zip(got, exact)))
+        if kernel == fa.BACKWARD and not bf16:
+            worst_abs[kernel] = max(worst_abs[kernel],
+                                    max(abs_err(a.double(), x) for a, x in zip(got, exact)))
         del exact
         if not err <= tol:
-            raise AssertionError(f"flash backward at {label}: error {err:.3g} > {tol}")
-        rows[label] = dict(err=err, tol=tol,
-            shape=f"q {tuple(q.shape)}, kv {tuple(k.shape)}, {dt}, causal",
-            ms=cuda_ms(lambda: fa.flash_attention_bwd_cuda(q, k, v, out, dout, True), 5, 2),
-            plain_ms=cuda_ms(lambda: fa.attention_bwd_plain(q, k, v, out, dout, True), 2, 1),
-            library_ms=cuda_ms(lambda: torch.autograd.grad(lib_out, (ql, kl, vl), dl,
-                                                           retain_graph=True), 5, 2),
-            bound_ms=bnd[0], bound_by=bnd[1])
-        r = rows[label]
-        log(f"[14 training] flash_attention_bwd at {label} {r['shape']}: "
+            raise AssertionError(f"{kernel} at {label}: error {err:.3g} > {tol}")
+        r = dict(err=err, tol=tol, shape=f"q {tuple(q.shape)}, kv {tuple(k.shape)}, {dt}, causal")
+        if kernel == fa.BACKWARD_WGMMA:
+            rounded = fa.attention_bwd_rounded(q, k, v, out, dout, True)
+            r["rounded_err"] = rounded_err(got, rounded)
+            if not r["rounded_err"] <= fa.BWD_ROUNDED_REL_ERR:
+                raise AssertionError(f"{kernel} at {label}: {r['rounded_err']:.3g} from "
+                                     f"attention_bwd_rounded > {fa.BWD_ROUNDED_REL_ERR}")
+            worst_abs[kernel] = max(worst_abs[kernel], max(
+                abs_err(a.float(), x.float()) for a, x in zip(got, rounded)))
+            del rounded
+            plain = fa.attention_bwd_rounded
+        else:
+            plain = fa.attention_bwd_plain
+        r.update(ms=cuda_ms(lambda: fa.flash_attention_bwd_cuda(q, k, v, out, dout, True, lse),
+                            5, 2),
+                 plain_ms=cuda_ms(lambda: plain(q, k, v, out, dout, True), 2, 1),
+                 library_ms=cuda_ms(lambda: torch.autograd.grad(lib_out, (ql, kl, vl), dl,
+                                                                retain_graph=True), 5, 2),
+                 bound_ms=bnd[0], bound_by=bnd[1])
+        rows[kernel][label] = r
+        log(f"[14 training] {kernel} at {label} {r['shape']}: "
             f"{'max |a - x| / max |x|' if not bf16 else 'relative norm'} {err:.3g} from float64 "
-            f"autograd (limit {tol}); {r['ms']:.3f} ms, "
-            f"bound {r['bound_ms']:.4f} by {r['bound_by']}, plain {r['plain_ms']:.3f}, "
-            f"scaled_dot_product_attention backward (heads permuted, group {group}) "
-            f"{r['library_ms']:.3f}")
-        del q, k, v, dout, out, ql, kl, vl, lib_out, dl, got
-    main = rows.pop("granite-moe")
-    report["flash_attention_bwd"] = dict(
-        replaces="src/repro/nn/layers.py:97 (jax.grad of XLA attention, no Pallas kernel)",
-        max_abs_err=worst_abs, main_path_launches=launches, other_shapes=rows, **main)
+            f"autograd (limit {tol})"
+            + (f", {r['rounded_err']:.3g} from attention_bwd_rounded" if 'rounded_err' in r
+               else "")
+            + f"; {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} by {r['bound_by']}, plain "
+            f"{r['plain_ms']:.3f}, scaled_dot_product_attention backward (heads permuted, "
+            f"group {group}) {r['library_ms']:.4f}")
+        del q, k, v, dout, out, lse, ql, kl, vl, lib_out, dl, got
+    replaces = "src/repro/nn/layers.py:97 (jax.grad of XLA attention, no Pallas kernel)"
+    for kernel, by in rows.items():
+        main = by.pop(next(iter(by)))
+        report[kernel] = dict(replaces=replaces, max_abs_err=worst_abs[kernel],
+                              main_path_launches=launches[kernel], other_shapes=by, **main)
     reset_peak()
 
 
@@ -4204,7 +4306,7 @@ def training_phase(dev, ops, sr, bag, fa, report, root: Path) -> dict:
     t.append(time.perf_counter())
     launches.update(family_training(dev, ops, sr, bag, fa))
     t.append(time.perf_counter())
-    time_flash_bwd(dev, fa, report, worst_abs, launches["flash_attention_bwd"])
+    time_flash_bwd(dev, fa, report, worst_abs, launches)
     log(f"[14 training] launches {dict(launches)}; (a)+(b) {t[1] - t[0]:.1f} s, (c) "
         f"{t[2] - t[1]:.1f} s, (d) {t[3] - t[2]:.1f} s, (e) {t[4] - t[3]:.1f} s, timing "
         f"{time.perf_counter() - t[4]:.1f} s")
@@ -4290,6 +4392,21 @@ def main() -> int:
     log(f"[2 build] {_build.KERNELS[fa.TF32]} SASS: {dict(tf32)}")
     if not tf32:
         raise AssertionError("the TF32 flash kernel has no TF32 tensor-core instructions")
+    bwd_src = _build.KERNELS[fa.BACKWARD_WGMMA]
+    sass = sass_of(bwd_src)
+    found = {op: sass.count(op) for op in ("HGMMA", "UTMALDG", "USETMAXREG")}
+    log(f"[2 build] {bwd_src} SASS: {found}")
+    if not (found["HGMMA"] and found["UTMALDG"]):
+        raise AssertionError(f"the wgmma flash backward lacks wgmma or TMA loads: {found}")
+    # every instance: dkdv_kernel<DP, causal>, dq_kernel<DP, causal>, delta_kernel
+    # (dkdv's count is at entry: setmaxnreg then gives its consumers 240)
+    per = []
+    for name, spill, regs in ptxas_instances(_build.ptxas_report(bwd_src)):
+        m = re.search(r"(dkdv_kernel|dq_kernel|delta_kernel)(?:ILi(\d+)ELb(\d)E)?", name)
+        what = m.group(1) + (f"<{m.group(2)}, {'causal' if m.group(3) == '1' else 'full'}>"
+                             if m.group(2) else "")
+        per.append(f"{what} {regs} registers, {spill} spill bytes")
+    log(f"[2 build] {bwd_src}: {'; '.join(per)}")
     # registers and spills of every instance; the main path's by name:
     # flash_kernel<float, DP = 128, causal, cp.async>; spmm_kernel<float, V, L, C>
     # at D = 64 (V = 4, L = 16, C = 1) and D = 70 (V = 2, L = 16, C = 3)

@@ -11,6 +11,7 @@
     python3 scripts/port_kernel_probe.py bag [--root DIR] [--parent DIR]
     python3 scripts/port_kernel_probe.py bagvar [--parent DIR]
     python3 scripts/port_kernel_probe.py batched [--root DIR] [--parent DIR]
+    python3 scripts/port_kernel_probe.py flashbwd [--root DIR] [--parent DIR]
 
 tiles    — builds `csrc/flash_attention_wgmma.cu` with -DFLASH_WGMMA_PROBE
            into `build/probe/` (the same kernel, whose kv-tile width and
@@ -103,6 +104,16 @@ batched  — `ell_combine_batched_cuda` on the four ELL slices of RMAT scale
            Last, the control: every live id replaced by a uniform draw from
            [0, n), copy/sum at Q = 8 and 64; its gap to the real ids is the
            L2 reuse that the hubs give. CUDA events.
+flashbwd — the flash backward in bf16 at granite-moe-1b-a400m's layer (B =
+           8, 16 / 8 heads of 64, S = 1024, causal) and granite-3-8b's (B =
+           2, 32 / 8 heads of 128), as `flash_attention_bwd_cuda` takes it in
+           each tree (with the wgmma forward's lse where the tree's
+           `route_bwd` picks the wgmma kernel, else without), each call's
+           (dq, dk, dv) against `attention_bwd_rounded` in relative norm;
+           --root and --parent as for flash32 (parent, change, change,
+           parent on the same inputs). Then this tree's wgmma forward with
+           and without `with_lse`, and its backward split by kernel (the
+           Delta pass, dK/dV, dQ: torch.profiler device time). CUDA events.
 
 It fails where there is no GPU or a variant does not build or disagrees.
 """
@@ -124,9 +135,10 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 from chip_smoke import BAG_BATCHES, card_line, cuda_ms, graph_ms, host_us  # noqa: E402
 
-#: the probe entry's C parameters: flash_attention_wgmma_launch's, with the
-#: kv-tile width and the ring depth before the stream
-PROBE_ARGTYPES = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 6 + (
+#: the probe entry's C parameters: flash_attention_wgmma_launch's (lse
+#: after the output), with the kv-tile width and the ring depth before the
+#: stream
+PROBE_ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 6 + (
     ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
 VARIANTS = [(64, 2), (64, 3), (128, 2), (128, 3)]     # (BKV, STAGES); (64, 2) ships
 
@@ -169,8 +181,8 @@ def flash_tiles(dev) -> None:
     def run(bkv, stages, q, k, v, causal=True):
         b, hq, sq, d = q.shape
         o = torch.empty_like(q)
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, hq, k.shape[1],
-                 sq, k.shape[2], d, 1.0 / d ** 0.5, int(causal), bkv, stages,
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), None, b, hq,
+                 k.shape[1], sq, k.shape[2], d, 1.0 / d ** 0.5, int(causal), bkv, stages,
                  _build.stream_of(dev))
         _build.check(err, f"flash probe bkv={bkv} stages={stages}")
         return o
@@ -336,6 +348,49 @@ def flash32(dev, root: Path, parent) -> None:
             us = getattr(e, "self_device_time_total", 0) or 0
             if us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
                 log(f"[flash32] change: {what}: {e.key[:60]} {us / 10:.2f} us a call")
+
+
+def flash_bwd(dev, root: Path, parent) -> None:
+    order = trees_in_turns(root, parent, ("flash_attention",))
+    fa = order[1 if parent is not None else 0][1]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(25)
+    cases = {}
+    for what, (b, hq, hkv, s, d) in (("granite-moe layer", (8, 16, 8, 1024, 64)),
+                                     ("granite-3-8b layer", (2, 32, 8, 1024, 128))):
+        q = torch.randn(b, hq, s, d, device=dev, generator=gen).to(torch.bfloat16)
+        k, v = (torch.randn(b, hkv, s, d, device=dev, generator=gen).to(torch.bfloat16)
+                for _ in range(2))
+        dout = torch.randn(b, hq, s, d, device=dev, generator=gen).to(torch.bfloat16)
+        out, lse = fa.flash_attention_cuda(q, k, v, True, with_lse=True)
+        cases[what] = (q, k, v, dout, out, lse, fa.attention_bwd_rounded(q, k, v, out, dout))
+    for label, mod in order:
+        for what, (q, k, v, dout, out, lse, ref) in cases.items():
+            route_bwd = getattr(mod, "route_bwd", None)    # a tree before the wgmma route
+            wgmma = route_bwd is not None and route_bwd(q.dtype, q.shape[-1]) == mod.BACKWARD_WGMMA
+            args = (q, k, v, out, dout, True) + ((lse,) if wgmma else ())
+            got = mod.flash_attention_bwd_cuda(*args)
+            err = max(float((a.float() - r.float()).norm() / r.float().norm())
+                      for a, r in zip(got, ref))
+            ms = cuda_ms(lambda: mod.flash_attention_bwd_cuda(*args), 10, 3, 3)
+            log(f"[flashbwd] {label}: {what}: {'wgmma' if wgmma else 'CUDA-core'} backward "
+                f"{ms:.4f} ms, {err:.3g} from attention_bwd_rounded (relative norm, worst "
+                "of dq, dk, dv)")
+    for what, (q, k, v, *_) in cases.items():
+        bare = cuda_ms(lambda: fa.flash_attention_cuda(q, k, v, True), 20, 3, 3)
+        kept = cuda_ms(lambda: fa.flash_attention_cuda(q, k, v, True, with_lse=True), 20, 3, 3)
+        log(f"[flashbwd] change: {what}: wgmma forward {bare:.4f} ms, with lse {kept:.4f} ms")
+    from torch.profiler import ProfilerActivity, profile
+
+    for what, (q, k, v, dout, out, lse, _) in cases.items():
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                fa.flash_attention_bwd_cuda(q, k, v, out, dout, True, lse)
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            us = getattr(e, "self_device_time_total", 0) or 0
+            if us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+                log(f"[flashbwd] change: {what}: {e.key[:70]} {us / 10:.2f} us a call")
 
 
 def rmat22_slices(dev):
@@ -821,21 +876,22 @@ def tiers(dev) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("probe", choices=("tiles", "pack", "wrappers", "combine", "tiers",
-                                      "flash32", "spmm", "bag", "bagvar", "batched"))
+                                      "flash32", "spmm", "bag", "bagvar", "batched",
+                                      "flashbwd"))
     ap.add_argument("--root", type=Path, default=ROOT,
                     help="checkout whose src/repro_torch the wrappers and combine probes time")
     ap.add_argument("--parent", type=Path, default=None,
-                    help="combine, flash32, spmm, bag, batched: also time the tree under "
-                         "this checkout, in turns")
+                    help="combine, flash32, spmm, bag, batched, flashbwd: also time the "
+                         "tree under this checkout, in turns")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("port_kernel_probe: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
     log(f"[card] {card_line()}")
-    if args.probe in ("combine", "flash32", "spmm", "bag", "batched"):
+    if args.probe in ("combine", "flash32", "spmm", "bag", "batched", "flashbwd"):
         {"combine": combine, "flash32": flash32, "spmm": spmm, "bag": bag_probe,
-         "batched": batched}[args.probe](dev, args.root, args.parent)
+         "batched": batched, "flashbwd": flash_bwd}[args.probe](dev, args.root, args.parent)
         return 0
     import_port(args.root if args.probe == "wrappers" else ROOT)
     if args.probe == "bagvar":

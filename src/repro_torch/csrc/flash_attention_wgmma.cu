@@ -61,31 +61,35 @@
 //              the heavy causal tiles start first and the light ones fill
 //              the tail.
 //   epilogue — divide by l, round to bf16, store with row and column masks.
+//              Given an `lse` pointer, also write each row's natural
+//              log-sum-exp, m ln 2 + ln l (+inf for a row that sees no kv
+//              position), which the backward (flash_attention_bwd_wgmma.cu)
+//              reads instead of recomputing it; the output is the same
+//              bits with or without it.
 //
 // Not done here (PERF.md §7): ping-pong of one warpgroup's softmax against
 // the other's products, overlap of the next Q K^T with this tile's softmax,
 // persistent blocks.
 //
-// The tensor maps are encoded on the host by cuTensorMapEncodeTiled, a
-// driver symbol reached through cudaGetDriverEntryPoint, so the library
-// links against the runtime only (no -lcuda).
+// The mbarrier, TMA and wgmma helpers and the tensor-map encoding are in
+// wgmma_tma.cuh.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include <math.h>
+
+#include "wgmma_tma.cuh"
 
 namespace {
+
+using namespace repro::hopper;
 
 constexpr int BQ = 128;                    // q rows per block
 constexpr int SHIP_BKV = 64;               // kv positions per tile, as shipped
 constexpr int SHIP_STAGES = 2;             // kv ring depth, as shipped
 constexpr int CONSUMERS = 256;             // two warpgroups
 constexpr int THREADS = CONSUMERS + 32;    // and one producer warp
-constexpr int PANEL = 64;                  // bf16 columns per swizzled panel
-constexpr int ROW_BYTES = 128;             // one panel row
 constexpr float NEG = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 constexpr unsigned FULL = 0xffffffffu;
 
 template <int DP, int BKV, int STAGES>
@@ -98,228 +102,6 @@ struct Layout {
   static constexpr int SMEM = Q_BYTES + STAGES * STAGE_BYTES + 1024;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// -- mbarriers ---------------------------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" :: "r"(bar) : "memory");
-}
-
-// returns once the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  }
-}
-
-// -- TMA ---------------------------------------------------------------------
-
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5}], [%2];"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-         "r"(c2)
-      : "memory");
-}
-
-// -- wgmma -------------------------------------------------------------------
-
-// shared-memory matrix descriptor, 128-byte swizzle: start address, leading
-// byte offset (K-major: unused; N-major: the stride between 64-column
-// panels), stride byte offset (between groups of 8 rows), all >> 4
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr >> 4) & 0x3FFF) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-
-// keeps the compiler from touching accumulators across an async wgmma
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
-}
-
-// D (64 x 64, f32) {+}= A (64 x 16, smem) * B (64 x 16, smem), both K-major
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{" 
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(scale_d));
-}
-
-// D (64 x 128, f32) {+}= A (64 x 16, smem) * B (128 x 16, smem), both K-major
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a, uint64_t b,
-                                              int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{" 
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(scale_d));
-}
-
-// D (64 x 128, f32) += A (64 x 16, bf16 registers) * B (16 x 128, smem, N-major: transposed)
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{" 
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-// D (64 x 64, f32) += A (64 x 16, bf16 registers) * B (16 x 64, smem, N-major: transposed)
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{" 
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-// S (64 x BKV) {+}= Q K^T, one k-step
-template <int BKV>
-__device__ __forceinline__ void wgmma_qk(float (&d)[BKV / 2], uint64_t a, uint64_t b,
-                                         int scale_d);
-template <>
-__device__ __forceinline__ void wgmma_qk<64>(float (&d)[32], uint64_t a, uint64_t b,
-                                             int scale_d) {
-  wgmma_ss_n64(d, a, b, scale_d);
-}
-template <>
-__device__ __forceinline__ void wgmma_qk<128>(float (&d)[64], uint64_t a, uint64_t b,
-                                              int scale_d) {
-  wgmma_ss_n128(d, a, b, scale_d);
-}
-
-// O (64 x DP) += P V, one k-step
-template <int DP>
-__device__ __forceinline__ void wgmma_pv(float (&o)[DP / 2], const uint32_t (&a)[4],
-                                         uint64_t b);
-template <>
-__device__ __forceinline__ void wgmma_pv<64>(float (&o)[32], const uint32_t (&a)[4],
-                                             uint64_t b) {
-  wgmma_rs_n64(o, a, b);
-}
-template <>
-__device__ __forceinline__ void wgmma_pv<128>(float (&o)[64], const uint32_t (&a)[4],
-                                              uint64_t b) {
-  wgmma_rs_n128(o, a, b);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 // DP: D padded to a whole number of 64-column panels (64 or 128); TMA fills
 // the padding with zeros. BKV: kv positions per tile (64 or 128); STAGES:
 // the depth of the kv ring.
@@ -327,7 +109,8 @@ template <int DP, int BKV, int STAGES, bool CAUSAL>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
             const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out,
-            int Hq, int Hkv, int Sq, int Skv, int D, float scale_log2) {
+            float* __restrict__ lse, int Hq, int Hkv, int Sq, int Skv, int D,
+            float scale_log2) {
   using L = Layout<DP, BKV, STAGES>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t bars[1 + 2 * STAGES];  // q, full[], empty[]
@@ -421,7 +204,7 @@ flash_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUte
           const uint32_t off = (kk % 4) * 32;      // k-step within the panel
           const uint64_t da = sw128_desc(q_wg + (kk / 4) * BQ * ROW_BYTES + off, 16, 1024);
           const uint64_t db = sw128_desc(k_addr + (kk / 4) * BKV * ROW_BYTES + off, 16, 1024);
-          wgmma_qk<BKV>(sc, da, db, kk > 0 ? 1 : 0);
+          wgmma_ss<BKV>(sc, da, db, kk > 0 ? 1 : 0);
         }
         wgmma_commit();
         wgmma_wait_all();
@@ -486,7 +269,7 @@ flash_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUte
 #pragma unroll
         for (int kk = 0; kk < BKV / 16; ++kk) {
           const uint64_t dv = sw128_desc(v_addr + kk * 16 * ROW_BYTES, BKV * ROW_BYTES, 1024);
-          wgmma_pv<DP>(o, pa[kk], dv);
+          wgmma_rs<DP>(o, pa[kk], dv);
         }
         wgmma_commit();
         wgmma_wait_all();
@@ -503,6 +286,8 @@ flash_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUte
       l[hh] += __shfl_xor_sync(FULL, l[hh], 2);
       const int row = q0 + row0 + 8 * hh;
       if (row >= Sq) continue;
+      if (lse != nullptr && quad == 0)   // m stays NEG where no kv position is seen
+        lse[(long long)bh * Sq + row] = m[hh] == NEG ? INFINITY : m[hh] * LN2 + logf(l[hh]);
       const float inv = 1.0f / fmaxf(l[hh], 1e-30f);
 #pragma unroll
       for (int i = 0; i < DP / 8; ++i) {
@@ -517,60 +302,24 @@ flash_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUte
 
 // -- host ----------------------------------------------------------------------
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                              cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
-    fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// a (D, S, BH) bf16 tensor read in boxes of 64 columns x `rows` rows of one head
-bool tensor_map(CUtensorMap* map, const void* ptr, int D, int S, int BH, int rows) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)BH};
-  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)S * D * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)PANEL, (cuuint32_t)rows, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
-            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int DP, int BKV, int STAGES, bool CAUSAL>
 cudaError_t go(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv, void* o,
-               int B, int Hq, int Hkv, int Sq, int Skv, int D, float scale, cudaStream_t s) {
+               float* lse, int B, int Hq, int Hkv, int Sq, int Skv, int D, float scale,
+               cudaStream_t s) {
   auto kern = flash_wgmma<DP, BKV, STAGES, CAUSAL>;
   constexpr int bytes = Layout<DP, BKV, STAGES>::SMEM;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid(B * Hq, (Sq + BQ - 1) / BQ);
-  kern<<<grid, THREADS, bytes, s>>>(tq, tk, tv, (__nv_bfloat16*)o, Hq, Hkv, Sq, Skv, D,
+  kern<<<grid, THREADS, bytes, s>>>(tq, tk, tv, (__nv_bfloat16*)o, lse, Hq, Hkv, Sq, Skv, D,
                                     scale * LOG2E);
   return cudaGetLastError();
 }
 
 template <int BKV, int STAGES>
-int launch(const void* q, const void* k, const void* v, void* out, int B, int Hq, int Hkv,
-           int Sq, int Skv, int D, float scale, int causal, void* stream) {
+int launch(const void* q, const void* k, const void* v, void* out, void* lse_out, int B,
+           int Hq, int Hkv, int Sq, int Skv, int D, float scale, int causal, void* stream) {
   if (B <= 0 || Sq <= 0 || Hq <= 0) return 0;
   if (Hkv < 1 || Hq % Hkv != 0 || D < 8 || D > 128 || D % 8 != 0 || Skv < 1 ||
       (Sq + BQ - 1) / BQ > 65535 || (long long)B * Hq > 0x7fffffff)
@@ -582,29 +331,32 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int Hq
       !tensor_map(&tv, v, D, Skv, B * Hkv, BKV))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  float* lse = (float*)lse_out;
   if (D <= 64)
-    return causal ? (int)go<64, BKV, STAGES, true>(tq, tk, tv, out, B, Hq, Hkv, Sq, Skv, D,
-                                                   scale, s)
-                  : (int)go<64, BKV, STAGES, false>(tq, tk, tv, out, B, Hq, Hkv, Sq, Skv, D,
-                                                    scale, s);
-  return causal ? (int)go<128, BKV, STAGES, true>(tq, tk, tv, out, B, Hq, Hkv, Sq, Skv, D,
-                                                  scale, s)
-                : (int)go<128, BKV, STAGES, false>(tq, tk, tv, out, B, Hq, Hkv, Sq, Skv, D,
-                                                   scale, s);
+    return causal ? (int)go<64, BKV, STAGES, true>(tq, tk, tv, out, lse, B, Hq, Hkv, Sq, Skv,
+                                                   D, scale, s)
+                  : (int)go<64, BKV, STAGES, false>(tq, tk, tv, out, lse, B, Hq, Hkv, Sq, Skv,
+                                                    D, scale, s);
+  return causal ? (int)go<128, BKV, STAGES, true>(tq, tk, tv, out, lse, B, Hq, Hkv, Sq, Skv,
+                                                  D, scale, s)
+                : (int)go<128, BKV, STAGES, false>(tq, tk, tv, out, lse, B, Hq, Hkv, Sq, Skv,
+                                                   D, scale, s);
 }
 
 }  // namespace
 
 // q (B, Hq, Sq, D), k and v (B, Hkv, Skv, D), out (B, Hq, Sq, D): contiguous
 // bfloat16, 16-byte aligned. Hq % Hkv == 0, D % 8 == 0, 8 <= D <= 128.
+// lse: null, or float32 room for B Hq Sq values (each row's natural
+// log-sum-exp, +inf for a row that sees nothing).
 // Returns the first CUDA error of the tensor-map encoding (as
 // cudaErrorInvalidValue), the attribute call or the launch (0 on success).
 extern "C" int flash_attention_wgmma_launch(const void* q, const void* k, const void* v,
-                                            void* out, int B, int Hq, int Hkv, int Sq,
-                                            int Skv, int D, float scale, int causal,
+                                            void* out, void* lse, int B, int Hq, int Hkv,
+                                            int Sq, int Skv, int D, float scale, int causal,
                                             void* stream) {
-  return launch<SHIP_BKV, SHIP_STAGES>(q, k, v, out, B, Hq, Hkv, Sq, Skv, D, scale, causal,
-                                       stream);
+  return launch<SHIP_BKV, SHIP_STAGES>(q, k, v, out, lse, B, Hq, Hkv, Sq, Skv, D, scale,
+                                       causal, stream);
 }
 
 #ifdef FLASH_WGMMA_PROBE
@@ -612,17 +364,17 @@ extern "C" int flash_attention_wgmma_launch(const void* q, const void* k, const 
 // `stages` (2 or 3) chosen at run time, for design probes; otherwise as
 // flash_attention_wgmma_launch.
 extern "C" int flash_attention_wgmma_probe(const void* q, const void* k, const void* v,
-                                           void* out, int B, int Hq, int Hkv, int Sq,
-                                           int Skv, int D, float scale, int causal, int bkv,
-                                           int stages, void* stream) {
+                                           void* out, void* lse, int B, int Hq, int Hkv,
+                                           int Sq, int Skv, int D, float scale, int causal,
+                                           int bkv, int stages, void* stream) {
   if (bkv == 64 && stages == 2)
-    return launch<64, 2>(q, k, v, out, B, Hq, Hkv, Sq, Skv, D, scale, causal, stream);
+    return launch<64, 2>(q, k, v, out, lse, B, Hq, Hkv, Sq, Skv, D, scale, causal, stream);
   if (bkv == 64 && stages == 3)
-    return launch<64, 3>(q, k, v, out, B, Hq, Hkv, Sq, Skv, D, scale, causal, stream);
+    return launch<64, 3>(q, k, v, out, lse, B, Hq, Hkv, Sq, Skv, D, scale, causal, stream);
   if (bkv == 128 && stages == 2)
-    return launch<128, 2>(q, k, v, out, B, Hq, Hkv, Sq, Skv, D, scale, causal, stream);
+    return launch<128, 2>(q, k, v, out, lse, B, Hq, Hkv, Sq, Skv, D, scale, causal, stream);
   if (bkv == 128 && stages == 3)
-    return launch<128, 3>(q, k, v, out, B, Hq, Hkv, Sq, Skv, D, scale, causal, stream);
+    return launch<128, 3>(q, k, v, out, lse, B, Hq, Hkv, Sq, Skv, D, scale, causal, stream);
   return (int)cudaErrorInvalidValue;
 }
 #endif

@@ -29,14 +29,16 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 #: template flag of `ell_combine.cu`, counted apart; the batched engine's
 #: Q-wide pull has a source of its own; flash attention has two forward
 #: routes, wgmma for bfloat16 and mma.sync in TF32 (3xTF32 for float32) for
-#: the rest, and one backward for both dtypes)
+#: the rest, and two backward routes by the same rule: wgmma for bfloat16,
+#: the CUDA cores for the rest)
 KERNELS = {"ell_combine": "ell_combine", "ell_combine_overlay": "ell_combine",
            "ell_combine_batched": "ell_combine_batched",
            "frontier_pack": "frontier_pack", "segment_reduce": "segment_reduce",
            "ell_spmm": "ell_spmm", "embedding_bag": "embedding_bag",
            "flash_attention": "flash_attention_wgmma",
            "flash_attention_f32": "flash_attention",
-           "flash_attention_bwd": "flash_attention_bwd"}
+           "flash_attention_bwd": "flash_attention_bwd",
+           "flash_attention_bwd_wgmma": "flash_attention_bwd_wgmma"}
 SOURCES = tuple(dict.fromkeys(KERNELS.values()))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -30,18 +30,24 @@ version that rounds where the kernels round (float32 scores, P rounded to
 bfloat16, a float32 P.V, the output rounded to bfloat16), within
 ROUNDED_REL_ERR in relative norm.
 
-The backward, for training, is `csrc/flash_attention_bwd.cu` (counted as
-`flash_attention_bwd`, both dtypes), which has no Pallas counterpart: the
-reference differentiates XLA's attention. From q, k, v, the forward's
-output and its gradient it gives (dq, dk, dv) in q's dtype, computed in
-float32 in three launches (row log-sum-exp and Delta = rowsum(dO o O), then
-dK/dV a kv tile, then dQ a q tile) with no float atomics, so a call is
-bit-for-bit repeatable. It is the exact derivative of attention at the
-given inputs in float32: the bfloat16 forward rounds P before P.V, and the
-backward does not model that rounding. `attention_bwd_plain` is its plain
-version, and both are held to autograd of `attention_plain` in float64 on
-the same inputs: within BWD_F32_ERR (relative to the largest gradient
-entry) for float32 inputs, and within BWD_BF16_REL_ERR in relative norm for
+The backward, for training, has no Pallas counterpart (the reference
+differentiates XLA's attention) and two kernels on the card, picked by
+`route_bwd(dtype, D)` with `route`'s rule. From q, k, v, the forward's
+output and its gradient each gives (dq, dk, dv) in q's dtype in three
+launches with no float atomics, so a call is bit-for-bit repeatable.
+bfloat16 with D % 8 == 0 goes to `csrc/flash_attention_bwd_wgmma.cu`
+(counted as `flash_attention_bwd_wgmma`): `wgmma` fed by TMA, P and dS
+rounded to bfloat16 before their products, float32 sums, and each row's
+log-sum-exp taken from the wgmma forward (`flash_attention_cuda(...,
+with_lse=True)`) rather than recomputed; its plain version at the same
+rounding points is `attention_bwd_rounded`, held to it within
+BWD_ROUNDED_REL_ERR. float32, and bfloat16 with D % 8 != 0, go to
+`csrc/flash_attention_bwd.cu` (counted as `flash_attention_bwd`), float32
+on the CUDA cores with the log-sum-exp recomputed: the exact derivative at
+the given inputs in float32, whose plain version is `attention_bwd_plain`.
+Both kernels are held to autograd of `attention_plain` in float64 on the
+same inputs: within BWD_F32_ERR (relative to the largest gradient entry)
+for float32 inputs, and within BWD_BF16_REL_ERR in relative norm for
 bfloat16 inputs, whose output and dout round to bfloat16.
 """
 
@@ -58,8 +64,10 @@ MAX_HEAD_DIM = 128
 #: the two kernels, by their names in `_build.KERNELS`: wgmma on bfloat16,
 #: mma.sync in TF32 (3xTF32 for float32) on the rest
 TENSOR_CORES, TF32 = "flash_attention", "flash_attention_f32"
-#: the backward kernel (both dtypes), by its name in `_build.KERNELS`
-BACKWARD = "flash_attention_bwd"
+#: the two backward kernels, by their names in `_build.KERNELS`: the CUDA
+#: cores in float32 (float32, and bfloat16 with D % 8 != 0), wgmma on the
+#: rest of bfloat16
+BACKWARD, BACKWARD_WGMMA = "flash_attention_bwd", "flash_attention_bwd_wgmma"
 #: bfloat16 kernel vs plain version, ||a - p|| / ||p||: the worst reading
 #: on an H100 (chip_smoke.py's sweep and granite shapes) is 6.4e-3, for the
 #: wgmma kernel. The plain version rounds its
@@ -79,6 +87,17 @@ BWD_F32_ERR = 2e-5
 #: gradients round to bfloat16 (2^-9) and Delta uses the forward's bfloat16
 #: output (the plain version reads 1.6e-3 to 2.2e-3 on the CPU)
 BWD_BF16_REL_ERR = 5e-3
+#: the wgmma backward vs `attention_bwd_rounded`, ||a - r|| / ||r|| per
+#: gradient: both round P and dS to bfloat16 at the same points, so what is
+#: left is a float32 ulp of their inputs (sum order, exp2 against exp, the
+#: forward's online log-sum-exp) flipping a bfloat16 rounding now and then;
+#: dropping key 0's row of dK and dV moves them by at least 3e-2 (the
+#: smallest share of one key among up to 1,024, non-causal; a causal key 0
+#: is seen by every query and weighs far more)
+BWD_ROUNDED_REL_ERR = 2e-3
+#: the wgmma backward's scratch rows per (batch, q head): Sq rounded up to
+#: a multiple of this
+BWD_SQ_ALIGN = 128
 
 
 def _shapes(q, k, v):
@@ -92,19 +111,27 @@ def _shapes(q, k, v):
     return b, hq, k.shape[1], sq, k.shape[2], d
 
 
+def _masked(s: torch.Tensor, causal: bool) -> torch.Tensor:
+    """Scores (..., Sq, Skv) with -inf where a query does not see the kv
+    position: under `causal`, query i sees positions <= i + Skv - Sq."""
+    if not causal:
+        return s
+    sq, skv = s.shape[-2:]
+    qpos = torch.arange(sq, device=s.device)[:, None] + (skv - sq)
+    kpos = torch.arange(skv, device=s.device)[None, :]
+    return torch.where(kpos <= qpos, s, float("-inf"))
+
+
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
     """Plain PyTorch version, as `ref.attention_ref` computes it."""
-    _, hq, hkv, sq, skv, d = _shapes(q, k, v)
+    _, hq, hkv, _, _, d = _shapes(q, k, v)
     group = hq // hkv
     kk = k.repeat(1, group, 1, 1)                  # group-major: head h -> h % hkv
     vv = v.repeat(1, group, 1, 1)
     scale = 1.0 / torch.sqrt(torch.tensor(float(d))).to(q.dtype)
     logits = torch.einsum("bhqd,bhkd->bhqk", q, kk) * scale.to(q.device)
-    if causal:
-        qpos = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
-        kpos = torch.arange(skv, device=q.device)[None, :]
-        logits = torch.where(kpos <= qpos, logits, float("-inf"))
+    logits = _masked(logits, causal)
     p = torch.softmax(logits.float(), dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bhkd->bhqd", p, vv)
 
@@ -115,15 +142,12 @@ def attention_rounded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     float32, softmax statistics in float32, the unnormalised P rounded to
     q's dtype before a float32 P.V, divided by the float32 row sum of the
     unrounded P, and the output rounded to q's dtype."""
-    _, hq, hkv, sq, skv, d = _shapes(q, k, v)
+    _, hq, hkv, _, _, d = _shapes(q, k, v)
     group = hq // hkv
     kk = k.repeat(1, group, 1, 1).float()          # group-major: head h -> h % hkv
     vv = v.repeat(1, group, 1, 1).float()
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk) * (1.0 / d ** 0.5)
-    if causal:
-        qpos = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
-        kpos = torch.arange(skv, device=q.device)[None, :]
-        s = torch.where(kpos <= qpos, s, float("-inf"))
+    s = _masked(s, causal)
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     o = torch.einsum("bhqk,bhkd->bhqd", p.to(q.dtype).float(), vv)
     return (o / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)).to(q.dtype)
@@ -161,7 +185,7 @@ def attention_3xtf32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     float32 row sum of the unrounded P; the output in q's dtype."""
     if passes not in (1, 3):
         raise ValueError(f"passes={passes}: 1 or 3")
-    _, hq, hkv, sq, skv, d = _shapes(q, k, v)
+    _, hq, hkv, _, _, d = _shapes(q, k, v)
     group = hq // hkv
     qb, qs = split_tf32(q)
     kb, ks = split_tf32(k.repeat(1, group, 1, 1))   # group-major: head h -> h % hkv
@@ -174,10 +198,7 @@ def attention_3xtf32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out
 
     s = prod("bhqd,bhkd->bhqk", qb, qs, kb, ks) * (1.0 / d ** 0.5)
-    if causal:
-        qpos = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
-        kpos = torch.arange(skv, device=q.device)[None, :]
-        s = torch.where(kpos <= qpos, s, float("-inf"))
+    s = _masked(s, causal)
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     pb, ps = split_tf32(p.to(q.dtype))
     o = prod("bhqk,bhkd->bhqd", pb, ps, vb, vs)
@@ -192,17 +213,14 @@ def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the scaled scores, Delta = rowsum(dout o out) uses the forward's `out`,
     dS = P o (dP - Delta); dk and dv sum over the query heads that read each
     kv head (h % Hkv). A row that sees no kv position gets a zero gradient."""
-    b, hq, hkv, sq, skv, d = _shapes(q, k, v)
+    b, hq, hkv, _, skv, d = _shapes(q, k, v)
     group = hq // hkv
     qf, dof = q.float(), dout.float()
     kk = k.float().repeat(1, group, 1, 1)          # group-major: head h -> h % hkv
     vv = v.float().repeat(1, group, 1, 1)
     scale = 1.0 / d ** 0.5
     s = torch.einsum("bhqd,bhkd->bhqk", qf, kk) * scale
-    if causal:
-        qpos = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
-        kpos = torch.arange(skv, device=q.device)[None, :]
-        s = torch.where(kpos <= qpos, s, float("-inf"))
+    s = _masked(s, causal)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - torch.where(torch.isfinite(m), m, 0.0))
     p = p / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
@@ -217,10 +235,68 @@ def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def attention_lse(q: torch.Tensor, k: torch.Tensor, causal: bool = True) -> torch.Tensor:
+    """(B, Hq, Sq) float32 natural log-sum-exp of each query row's scaled
+    scores (q.k in float32, times 1/sqrt(D)), +inf for a row that sees no kv
+    position: what the wgmma forward writes given `with_lse`."""
+    _, hq, hkv, _, _, d = _shapes(q, k, k)
+    kk = k.float().repeat(1, hq // hkv, 1, 1)      # group-major: head h -> h % hkv
+    return _lse(_masked(torch.einsum("bhqd,bhkd->bhqk", q.float(), kk) * (1.0 / d ** 0.5),
+                        causal))
+
+
+def _lse(s: torch.Tensor) -> torch.Tensor:
+    """Log-sum-exp over the last axis, +inf where every score is -inf."""
+    lse = torch.logsumexp(s, dim=-1)
+    return torch.where(lse == float("-inf"), float("inf"), lse)
+
+
+def attention_bwd_rounded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          out: torch.Tensor, dout: torch.Tensor, causal: bool = True
+                          ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the wgmma backward at its rounding points: scores
+    q.k in float32, P = exp(s - lse) in float32 against the row's float32
+    log-sum-exp (`attention_lse`), Delta = rowsum(dout o out) in float32,
+    dS = P o (dP - Delta) in float32; P and dS rounded to q's dtype before
+    the products dV = P^T dout, dK = dS^T q and dQ = dS k, which sum in
+    float32 (dk and dv over the query heads that read each kv head), dK and
+    dQ then scaled by 1/sqrt(D); each gradient rounded to q's dtype once. A
+    row that sees no kv position gets a zero gradient."""
+    b, hq, hkv, _, skv, d = _shapes(q, k, v)
+    group = hq // hkv
+    qf, dof = q.float(), dout.float()
+    kk = k.float().repeat(1, group, 1, 1)          # group-major: head h -> h % hkv
+    vv = v.float().repeat(1, group, 1, 1)
+    scale = 1.0 / d ** 0.5
+    s = _masked(torch.einsum("bhqd,bhkd->bhqk", qf, kk) * scale, causal)
+    p = torch.exp(s - _lse(s)[..., None])
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vv)
+    delta = (dof * out.float()).sum(dim=-1, keepdim=True)
+    ds = (p * (dp - delta)).to(q.dtype).float()
+    p = p.to(q.dtype).float()
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kk) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf).reshape(b, group, hkv, skv, d).sum(dim=1)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof).reshape(b, group, hkv, skv, d).sum(dim=1)
+    return dq.to(q.dtype), (dk * scale).to(k.dtype), dv.to(v.dtype)
+
+
 def route(dtype: torch.dtype, d: int) -> str:
     """The kernel that takes inputs of `dtype` and head dim `d` on the card:
     wgmma for bfloat16 with d % 8 == 0, else the TF32 mma.sync kernel."""
     return TENSOR_CORES if dtype == torch.bfloat16 and d % 8 == 0 else TF32
+
+
+def route_bwd(dtype: torch.dtype, d: int) -> str:
+    """The backward kernel for `dtype` and head dim `d`, by `route`'s rule:
+    wgmma for bfloat16 with d % 8 == 0, else the CUDA-core kernel."""
+    return BACKWARD_WGMMA if route(dtype, d) == TENSOR_CORES else BACKWARD
+
+
+def bwd_stats_floats(b: int, hq: int, sq: int) -> int:
+    """float32 room for the wgmma backward's scratch: two planes (each row's
+    log-sum-exp in the log2 domain, then its Delta) of b * hq rows of Sq
+    rounded up to BWD_SQ_ALIGN."""
+    return 2 * b * hq * (-(-sq // BWD_SQ_ALIGN) * BWD_SQ_ALIGN)
 
 
 def tf32_padded_dim(d: int) -> int:
@@ -235,21 +311,29 @@ def tf32_scratch_floats(b: int, hkv: int, skv: int, d: int) -> int:
     return b * hkv * (skv * 2 * dp + (skv + 1) // 2 * 4 * dp)
 
 
-_WGMMA_ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 6
+#: flash_attention_wgmma_launch's: q, k, v, out, lse; B, Hq, Hkv, Sq, Skv,
+#: D; scale; causal; stream
+_WGMMA_ARGTYPES = ((ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 6
                    + (ctypes.c_float, ctypes.c_int, ctypes.c_void_p))
-#: flash_attention_launch's: the wgmma entry's, with the scratch pointer and
-#: its size after the output and the dtype before the stream
+#: flash_attention_launch's: the wgmma entry's without lse, with the scratch
+#: pointer and its size after the output and the dtype before the stream
 _ARGTYPES = (_WGMMA_ARGTYPES[:4] + (ctypes.c_void_p, ctypes.c_int)
-             + _WGMMA_ARGTYPES[4:12] + (ctypes.c_int, ctypes.c_void_p))
+             + _WGMMA_ARGTYPES[5:13] + (ctypes.c_int, ctypes.c_void_p))
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         causal: bool = True) -> torch.Tensor:
-    """Launch the kernel that `route` picks, on PyTorch's current stream."""
+                         causal: bool = True, with_lse: bool = False):
+    """Launch the kernel that `route` picks, on PyTorch's current stream.
+    With `with_lse` (the wgmma route only) returns (out, lse): lse (B, Hq,
+    Sq) float32 as `attention_lse` computes it, for the wgmma backward; the
+    output is the same bits either way."""
     dev = q.device
     b, hq, hkv, sq, skv, d = _shapes(q, k, v)
     if q.dtype not in DTYPES:
         raise TypeError(f"q has dtype {q.dtype}, expected float32 or bfloat16")
+    kernel = route(q.dtype, d)
+    if with_lse and kernel != TENSOR_CORES:
+        raise ValueError(f"with_lse: only the wgmma route ({q.dtype}, D = {d} takes {kernel})")
     p_q = _build.require(q, "q", q.dtype, 4, dev)
     p_k = _build.require(k, "k", q.dtype, 4, dev)
     p_v = _build.require(v, "v", q.dtype, 4, dev)
@@ -258,14 +342,14 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if skv < 1:
         raise ValueError("no kv positions")
     out = torch.empty_like(q)
-    kernel = route(q.dtype, d)
+    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=dev) if with_lse else None
     args = (b, hq, hkv, sq, skv, d, 1.0 / (d ** 0.5), int(causal))
     if kernel == TENSOR_CORES:
         if any(p % 16 for p in (p_q, p_k, p_v)):
             raise ValueError("q, k and v must be 16-byte aligned for TMA")
         fn = _build.entry("flash_attention_wgmma", "flash_attention_wgmma_launch",
                           _WGMMA_ARGTYPES)
-        args = (p_q, p_k, p_v, out.data_ptr()) + args
+        args = (p_q, p_k, p_v, out.data_ptr(), None if lse is None else lse.data_ptr()) + args
     else:
         room = tf32_scratch_floats(b, hkv, skv, d)
         if room >= 1 << 31:
@@ -279,24 +363,36 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = fn(*args, _build.stream_of(dev))
     _build.check(err, kernel)
     _build.LAUNCHES[kernel] += 1
-    return out
+    return (out, lse) if with_lse else out
 
 
 #: flash_attention_bwd_launch's: q, k, v, out, dout, dq, dk, dv, stats;
 #: B, Hq, Hkv, Sq, Skv, D; scale; causal, dtype; stream
 _BWD_ARGTYPES = ((ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 6
                  + (ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p))
+#: flash_attention_bwd_wgmma_launch's: q, k, v, out, dout, lse, dq, dk, dv,
+#: stats; B, Hq, Hkv, Sq, Skv, D; scale; causal; stream
+_BWD_WGMMA_ARGTYPES = ((ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 6
+                       + (ctypes.c_float, ctypes.c_int, ctypes.c_void_p))
 
 
 def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                             out: torch.Tensor, dout: torch.Tensor, causal: bool = True
+                             out: torch.Tensor, dout: torch.Tensor, causal: bool = True,
+                             lse: torch.Tensor | None = None
                              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch `csrc/flash_attention_bwd.cu` (row statistics, dK/dV, dQ) on
-    PyTorch's current stream; returns (dq, dk, dv) in q's dtype."""
+    """Launch the backward kernel that `route_bwd` picks (three launches:
+    row statistics, dK/dV, dQ) on PyTorch's current stream; returns (dq,
+    dk, dv) in q's dtype. The wgmma route needs `lse`, the forward's (B,
+    Hq, Sq) float32 log-sum-exp (`flash_attention_cuda(..., with_lse=True)`);
+    the CUDA-core route recomputes it and takes none."""
     dev = q.device
     b, hq, hkv, sq, skv, d = _shapes(q, k, v)
     if q.dtype not in DTYPES:
         raise TypeError(f"q has dtype {q.dtype}, expected float32 or bfloat16")
+    kernel = route_bwd(q.dtype, d)
+    if (lse is None) != (kernel == BACKWARD):
+        wants = "no lse" if kernel == BACKWARD else "the wgmma forward's lse"
+        raise ValueError(f"{kernel} ({q.dtype}, D = {d}) takes {wants}")
     ptrs = [_build.require(t, name, q.dtype, 4, dev)
             for t, name in ((q, "q"), (k, "k"), (v, "v"), (out, "out"), (dout, "dout"))]
     if out.shape != q.shape or dout.shape != q.shape:
@@ -307,12 +403,25 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if skv < 1:
         raise ValueError("no kv positions")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    stats = torch.empty(2 * b * hq * sq, dtype=torch.float32, device=dev)
-    fn = _build.entry(BACKWARD, "flash_attention_bwd_launch", _BWD_ARGTYPES)
+    shape = (b, hq, hkv, sq, skv, d, 1.0 / (d ** 0.5), int(causal))
+    if kernel == BACKWARD:
+        stats = torch.empty(2 * b * hq * sq, dtype=torch.float32, device=dev)
+        fn = _build.entry(BACKWARD, "flash_attention_bwd_launch", _BWD_ARGTYPES)
+        args = (*ptrs, dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(), *shape,
+                DTYPES[q.dtype])
+    else:
+        p_lse = _build.require(lse, "lse", torch.float32, 3, dev)
+        if tuple(lse.shape) != (b, hq, sq):
+            raise ValueError(f"lse {tuple(lse.shape)} must be {(b, hq, sq)}")
+        if any(p % 16 for p in ptrs):
+            raise ValueError("q, k, v, out and dout must be 16-byte aligned for TMA")
+        stats = torch.empty(bwd_stats_floats(b, hq, sq), dtype=torch.float32, device=dev)
+        fn = _build.entry(BACKWARD_WGMMA, "flash_attention_bwd_wgmma_launch",
+                          _BWD_WGMMA_ARGTYPES)
+        args = (*ptrs, p_lse, dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
+                *shape)
     with _build.device_guard(dev):
-        err = fn(*ptrs, dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
-                 b, hq, hkv, sq, skv, d, 1.0 / (d ** 0.5), int(causal), DTYPES[q.dtype],
-                 _build.stream_of(dev))
-    _build.check(err, BACKWARD)
-    _build.LAUNCHES[BACKWARD] += 1
+        err = fn(*args, _build.stream_of(dev))
+    _build.check(err, kernel)
+    _build.LAUNCHES[kernel] += 1
     return dq, dk, dv

@@ -15,8 +15,10 @@ output has no `grad_fn` where no input requires a gradient (as in serving):
 dropped id), `embedding_bag` (sum, mean: the deterministic scatter of each
 bag's gradient over its ids, [-V, -1] wrapped to id + V; an id still
 outside [0, V) drops, as `jax.grad` of the reference's `table[idx]` drops
-it, though its forward clamps it), `attention` (the flash backward kernel,
-`csrc/flash_attention_bwd.cu`) and `gather_rows` (`table[idx]`, whose
+it, though its forward clamps it), `attention` (the flash backward kernel
+that `flash_attention.route_bwd` picks; on the wgmma route the forward also
+writes each row's log-sum-exp, kept for the backward, but only when an
+input needs a gradient, so serving pays nothing for it) and `gather_rows` (`table[idx]`, whose
 backward is the deterministic scatter). The deterministic scatter sorts the
 flat ids stably, gathers the gradient rows in that order and sums them with
 `segment_reduce` (the kernel on the card), so every row's sum is taken in
@@ -95,9 +97,9 @@ def _attention(q, k, v, causal):
     return _fa.attention_plain(q, k, v, causal)
 
 
-def _attention_bwd(q, k, v, out, dout, causal):
+def _attention_bwd(q, k, v, out, dout, causal, lse):
     if _route(q) == "cuda":
-        return _fa.flash_attention_bwd_cuda(q, k, v, out, dout, causal)
+        return _fa.flash_attention_bwd_cuda(q, k, v, out, dout, causal, lse)
     return _fa.attention_bwd_plain(q, k, v, out, dout, causal)
 
 
@@ -156,17 +158,22 @@ class _EmbeddingBag(torch.autograd.Function):
 
 class _Attention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, causal):
-        out = _attention(q, k, v, causal)
-        ctx.save_for_backward(q, k, v, out)
+    def forward(ctx, q, k, v, causal, grads):
+        lse = None
+        if (grads and _route(q) == "cuda"
+                and _fa.route_bwd(q.dtype, q.shape[-1]) == _fa.BACKWARD_WGMMA):
+            out, lse = _fa.flash_attention_cuda(q, k, v, causal, with_lse=True)
+        else:
+            out = _attention(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal = causal
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out = ctx.saved_tensors
-        dq, dk, dv = _attention_bwd(q, k, v, out, dout.contiguous(), ctx.causal)
-        return dq, dk, dv, None
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _attention_bwd(q, k, v, out, dout.contiguous(), ctx.causal, lse)
+        return dq, dk, dv, None, None
 
 
 class _GatherRows(torch.autograd.Function):
@@ -200,8 +207,10 @@ def embedding_bag(table, idx, mode: str = "sum"):
 def attention(q, k, v, causal: bool = True):
     """Causal GQA attention, (B, Hq, Sq, D) in q's dtype; head h reads kv
     head h % Hkv. Differentiable in q, k and v (the flash backward on the
-    card)."""
-    return _Attention.apply(q, k, v, causal)
+    card). The forward keeps what the backward needs only when a gradient
+    can flow (grad mode on and an input that requires one)."""
+    grads = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    return _Attention.apply(q, k, v, causal, grads)
 
 
 def gather_rows(table, idx):

@@ -1093,9 +1093,23 @@ def _exact_grads(q, k, v, dout, causal):
     return torch.autograd.grad(out, (qq, kk, vv), dout.double())
 
 
+def _forward_for_bwd(q, k, v, causal):
+    """(out, lse) of the flash forward, lse None off the wgmma route."""
+    if tfa.route_bwd(q.dtype, q.shape[-1]) == tfa.BACKWARD_WGMMA:
+        return tfa.flash_attention_cuda(q, k, v, causal, with_lse=True)
+    return tfa.flash_attention_cuda(q, k, v, causal), None
+
+
+def _rel(a, x):
+    return float((a.double() - x.double()).norm() / x.double().norm())
+
+
+#: ragged across the 64-row tiles, Hq / Hkv 1 to 8, Sq < Skv and (last
+#: two) Sq > Skv, whose first rows see no key under `causal`; Dh 8 to 128,
+#: 12 taking the CUDA-core kernel in bf16 too
 BWD_SHAPES = [(1, 2, 2, 32, 32, 16), (2, 4, 2, 70, 133, 12), (1, 8, 1, 100, 100, 64),
               (2, 4, 4, 1, 37, 128), (1, 4, 2, 129, 200, 128), (2, 2, 1, 64, 64, 64),
-              (1, 16, 8, 257, 257, 64)]
+              (1, 16, 8, 257, 257, 64), (2, 2, 1, 33, 300, 8), (1, 4, 2, 200, 70, 96)]
 
 
 @pytest.mark.parametrize("b,hq,hkv,sq,skv,d", BWD_SHAPES)
@@ -1103,37 +1117,83 @@ BWD_SHAPES = [(1, 2, 2, 32, 32, 16), (2, 4, 2, 70, 133, 12), (1, 8, 1, 100, 100,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_bwd_matches_float64_autograd(cuda, b, hq, hkv, sq, skv, d, causal,
                                                       dtype):
-    """The backward kernel against float64 autograd of `attention_plain` on
+    """The backward kernel that `route_bwd` picks (the wgmma one given the
+    wgmma forward's lse) against float64 autograd of `attention_plain` on
     the same inputs (float32: BWD_F32_ERR of the largest entry; bfloat16:
-    BWD_BF16_REL_ERR in relative norm), one launch a call, two calls
-    bit-equal, and equal to the plain version's tolerance too."""
+    BWD_BF16_REL_ERR in relative norm), one launch a call under its own
+    counter, two calls bit-equal, a zero dq for a row that sees no key; the
+    wgmma kernel also within BWD_ROUNDED_REL_ERR of `attention_bwd_rounded`
+    (its relative norms are printed under pytest -s)."""
     q, k, v, dout = (t.to(dtype) for t in _bwd_case(cuda, b, hq, hkv, sq, skv, d, sq * d + skv))
-    out = tfa.flash_attention_cuda(q, k, v, causal)
+    kernel = tfa.route_bwd(dtype, d)
+    out, lse = _forward_for_bwd(q, k, v, causal)
     ops.reset_launches()
-    got = tfa.flash_attention_bwd_cuda(q, k, v, out, dout, causal)
-    assert ops.launch_counts()[tfa.BACKWARD] == 1
-    again = tfa.flash_attention_bwd_cuda(q, k, v, out, dout, causal)
-    assert all(torch.equal(a, c) for a, c in zip(got, again))
-    for a, x in zip(got, _exact_grads(q, k, v, dout, causal)):
+    got = tfa.flash_attention_bwd_cuda(q, k, v, out, dout, causal, lse)
+    counts = ops.launch_counts()
+    assert counts[kernel] == 1 and sum(counts.values()) == 1
+    again = tfa.flash_attention_bwd_cuda(q, k, v, out, dout, causal, lse)
+    assert all(torch.equal(a.view(torch.int16 if a.dtype == torch.bfloat16 else torch.int32),
+                           c.view(torch.int16 if c.dtype == torch.bfloat16 else torch.int32))
+               for a, c in zip(got, again))
+    # float64 autograd over the rows that see a key (it gives the others NaN
+    # and nothing to dk and dv)
+    lo = max(0, sq - skv) if causal else 0
+    assert not got[0][:, :, :lo].any()
+    exact = _exact_grads(q[:, :, lo:], k, v, dout[:, :, lo:], causal)
+    for a, x in zip((got[0][:, :, lo:],) + got[1:], exact):
         assert a.dtype == dtype and a.shape == x.shape
         if dtype == torch.float32:
             assert float((a.double() - x).abs().max() / x.abs().max()) <= tfa.BWD_F32_ERR
         else:
-            assert float((a.double() - x).norm() / x.norm()) <= tfa.BWD_BF16_REL_ERR
+            assert _rel(a, x) <= tfa.BWD_BF16_REL_ERR
+    if kernel == tfa.BACKWARD_WGMMA:
+        rounded = [_rel(a, r) for a, r in zip(got, tfa.attention_bwd_rounded(q, k, v, out, dout,
+                                                                             causal))]
+        print(f"wgmma backward {(b, hq, hkv, sq, skv, d)} {causal=}: (dq, dk, dv) from "
+              f"attention_bwd_rounded {rounded}")
+        assert max(rounded) <= tfa.BWD_ROUNDED_REL_ERR
 
 
-def test_attention_op_backward_launches_the_kernel(cuda):
-    """`ops.attention` on tensors that need a gradient: forward and backward
-    kernels launch once each, and the gradients equal the wrapper's."""
-    q, k, v, dout = (t.float() for t in _bwd_case(cuda, 2, 8, 2, 96, 96, 64, 5))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_op_backward_launches_the_kernel(cuda, dtype):
+    """`ops.attention` on tensors that need a gradient: the forward and the
+    backward kernel of the dtype's routes launch once each (bfloat16: the
+    wgmma forward keeps its lse and the wgmma backward takes it), and the
+    gradients equal the wrappers'; the output equals the inference call's."""
+    q, k, v, dout = (t.to(dtype) for t in _bwd_case(cuda, 2, 8, 2, 96, 96, 64, 5))
     qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
     ops.reset_launches()
     out = ops.attention(qq, kk, vv, True)
     grads = torch.autograd.grad(out, (qq, kk, vv), dout)
     counts = ops.launch_counts()
-    assert counts[tfa.TF32] == 1 and counts[tfa.BACKWARD] == 1
-    want = tfa.flash_attention_bwd_cuda(q, k, v, out.detach(), dout, True)
+    assert counts[tfa.route(dtype, 64)] == 1 and counts[tfa.route_bwd(dtype, 64)] == 1
+    assert sum(counts.values()) == 2
+    ref, lse = _forward_for_bwd(q, k, v, True)
+    assert torch.equal(out.detach(), ref)
+    want = tfa.flash_attention_bwd_cuda(q, k, v, ref, dout, True, lse)
     assert all(torch.equal(a, c) for a, c in zip(grads, want))
+    with torch.no_grad():
+        assert torch.equal(ops.attention(qq, kk, vv, True), ref)
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d", [(1, 2, 2, 32, 32, 16), (2, 4, 2, 200, 70, 96),
+                                               (1, 8, 4, 1, 77, 128), (1, 4, 1, 257, 513, 64)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_wgmma_forward_lse_matches_plain_and_keeps_the_output_bits(cuda, b, hq, hkv, sq, skv,
+                                                                   d, causal):
+    """`with_lse`: the same output bits as without it, and each row's
+    log-sum-exp within 1e-5 (absolute and relative) of `attention_lse`'s,
+    +inf exactly where a row sees nothing."""
+    q, k, v, _ = (t.to(torch.bfloat16) for t in _bwd_case(cuda, b, hq, hkv, sq, skv, d, 3))
+    out = tfa.flash_attention_cuda(q, k, v, causal)
+    again, lse = tfa.flash_attention_cuda(q, k, v, causal, with_lse=True)
+    assert torch.equal(out.view(torch.int16), again.view(torch.int16))
+    want = tfa.attention_lse(q, k, causal)
+    assert lse.shape == (b, hq, sq) and lse.dtype == torch.float32
+    assert torch.equal(torch.isinf(lse), torch.isinf(want))
+    assert bool((lse[torch.isinf(lse)] > 0).all())
+    fin = torch.isfinite(want)
+    torch.testing.assert_close(lse[fin], want[fin], rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("shape,v,d", [((4096,), 512, 64), ((8, 1024), 50, 16), ((300, 7), 9, 1)])
@@ -1221,3 +1281,33 @@ def test_reduced_moe_training_step_on_the_card_equals_the_cpu(cuda):
     assert losses[1] == pytest.approx(losses[0], rel=1e-5)
     for a, b in zip(*grads):
         assert float((a - b).abs().max()) <= 1e-3 * float(a.abs().max())
+
+
+def test_reduced_moe_bf16_gradients_take_the_wgmma_backward(cuda):
+    """The reduced MoE config in bfloat16 (head dim 16): `loss_fn`'s
+    gradients launch the wgmma forward twice a layer (remat) and the wgmma
+    backward once a layer, never the CUDA-core backward; two backward
+    passes bit-equal, every leaf finite."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch import tree as T
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as tfm
+
+    cfg = dataclasses.replace(configs.get("granite-moe-1b-a400m").make_reduced(),
+                              dtype="bfloat16")
+    tp = train.trainable(tfm.init_params(cfg, torch.Generator(device=cuda).manual_seed(0), cuda))
+    rng = np.random.default_rng(1)
+    x, y = (torch.from_numpy(rng.integers(0, cfg.vocab, (2, 40)).astype(np.int32)).to(cuda)
+            for _ in range(2))
+    runs = []
+    for _ in range(2):
+        ops.reset_launches()
+        runs.append(torch.autograd.grad(tfm.loss_fn(tp, x, y, cfg), T.leaves(tp)))
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == 2 * cfg.n_layers
+    assert counts["flash_attention_bwd_wgmma"] == cfg.n_layers
+    assert counts["flash_attention_bwd"] == 0
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    assert all(bool(torch.isfinite(g).all()) for g in runs[0])

@@ -31,6 +31,55 @@ def test_flash_route_is_a_function_of_dtype_and_head_dim(dtype, d, kernel):
     assert tfa.route(dtype, d) == kernel
 
 
+@pytest.mark.parametrize("dtype,d,kernel", [
+    (torch.bfloat16, 8, "flash_attention_bwd_wgmma"),
+    (torch.bfloat16, 16, "flash_attention_bwd_wgmma"),
+    (torch.bfloat16, 64, "flash_attention_bwd_wgmma"),
+    (torch.bfloat16, 96, "flash_attention_bwd_wgmma"),
+    (torch.bfloat16, 128, "flash_attention_bwd_wgmma"),
+    (torch.bfloat16, 12, "flash_attention_bwd"), (torch.bfloat16, 70, "flash_attention_bwd"),
+    (torch.float32, 8, "flash_attention_bwd"), (torch.float32, 64, "flash_attention_bwd"),
+    (torch.float32, 128, "flash_attention_bwd"), (torch.float32, 12, "flash_attention_bwd")])
+def test_flash_backward_route_follows_the_forward_route(dtype, d, kernel):
+    """The backward takes wgmma exactly where the forward does (bfloat16
+    with D % 8 == 0), so the forward's log-sum-exp is there to keep; the
+    rest takes the CUDA-core kernel."""
+    assert tfa.route_bwd(dtype, d) == kernel
+    assert (kernel == tfa.BACKWARD_WGMMA) == (tfa.route(dtype, d) == tfa.TENSOR_CORES)
+
+
+@pytest.mark.parametrize("b,hq,sq,rows", [(1, 1, 1, 128), (2, 3, 128, 128), (2, 3, 129, 256),
+                                          (8, 16, 1024, 1024), (1, 4, 1000, 1024)])
+def test_wgmma_backward_scratch_pads_each_head_to_128_rows(b, hq, sq, rows):
+    """Two float32 planes (lse in the log2 domain, Delta) of B * Hq rows of
+    Sq rounded up to 128: the stride the C entry computes, a multiple of 4
+    floats as TMA needs, and room for a dQ block's 128 rows."""
+    assert tfa.bwd_stats_floats(b, hq, sq) == 2 * b * hq * rows
+
+
+@pytest.mark.parametrize("dtype,d,lse", [(torch.bfloat16, 64, False), (torch.float32, 64, True),
+                                         (torch.bfloat16, 12, True)])
+def test_flash_backward_takes_lse_exactly_on_the_wgmma_route(dtype, d, lse):
+    """The wgmma backward needs the forward's log-sum-exp and the CUDA-core
+    one recomputes it: a call that gives the wrong one raises before any
+    tensor is checked or launched."""
+    q = torch.ones(1, 2, 4, d, dtype=dtype)
+    k = torch.ones(1, 1, 4, d, dtype=dtype)
+    given = torch.zeros(1, 2, 4) if lse else None
+    with pytest.raises(ValueError, match="lse"):
+        tfa.flash_attention_bwd_cuda(q, k, k, q, q, True, given)
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 64), (torch.bfloat16, 12)])
+def test_only_the_wgmma_forward_keeps_lse(dtype, d):
+    """`with_lse` on a forward that takes the TF32 kernel raises: that route
+    has no log-sum-exp to give."""
+    q = torch.ones(1, 2, 4, d, dtype=dtype)
+    k = torch.ones(1, 1, 4, d, dtype=dtype)
+    with pytest.raises(ValueError, match="with_lse"):
+        tfa.flash_attention_cuda(q, k, k, True, with_lse=True)
+
+
 @pytest.mark.parametrize("d,dp", [(1, 16), (12, 16), (16, 16), (17, 32), (64, 64), (70, 96),
                                   (96, 96), (97, 128), (128, 128)])
 def test_tf32_scratch_holds_the_split_planes(d, dp):
@@ -49,6 +98,7 @@ def test_both_flash_kernels_and_frontier_pack_are_registered():
     assert _build.KERNELS["frontier_pack"] == "frontier_pack"
     assert _build.KERNELS["ell_combine_batched"] == "ell_combine_batched"
     assert _build.KERNELS["flash_attention_bwd"] == "flash_attention_bwd"
+    assert _build.KERNELS["flash_attention_bwd_wgmma"] == "flash_attention_bwd_wgmma"
     assert set(_build.LAUNCHES) == set(_build.KERNELS)
     for source in _build.SOURCES:
         assert (_build.CSRC / f"{source}.cu").is_file(), source
@@ -88,9 +138,35 @@ def _c_params(source: str, symbol: str) -> list:
     ("flash_attention", "flash_attention_launch", tfa._ARGTYPES),
     ("flash_attention_wgmma", "flash_attention_wgmma_launch", tfa._WGMMA_ARGTYPES),
     ("flash_attention_bwd", "flash_attention_bwd_launch", tfa._BWD_ARGTYPES),
+    ("flash_attention_bwd_wgmma", "flash_attention_bwd_wgmma_launch", tfa._BWD_WGMMA_ARGTYPES),
     ("flash_attention_wgmma", "flash_attention_wgmma_probe", _probe().PROBE_ARGTYPES)])
 def test_ctypes_argtypes_match_the_c_entry_point(source, symbol, argtypes):
     """Same arity, and a pointer, int or float in each place: ctypes would
     otherwise pass a 64-bit pointer as a 32-bit int, or shift every
     argument after a missing one."""
     assert list(argtypes) == _c_params(source, symbol)
+
+
+def _c_names(source: str, symbol: str) -> list:
+    text = (_build.CSRC / f"{source}.cu").read_text()
+    found = re.search(r'extern "C" int ' + symbol + r"\((.*?)\)\s*\{", text, re.S)
+    return [" ".join(p.split()).split()[-1].lstrip("*") for p in found.group(1).split(",")]
+
+
+@pytest.mark.parametrize("symbol,argtypes", [
+    ("flash_attention_wgmma_launch", tfa._WGMMA_ARGTYPES),
+    ("flash_attention_wgmma_probe", _probe().PROBE_ARGTYPES)])
+def test_wgmma_forward_takes_lse_after_the_output(symbol, argtypes):
+    """The forward's optional log-sum-exp pointer sits after `out` in both
+    entries, and ctypes passes a pointer there (None for no lse)."""
+    names = _c_names("flash_attention_wgmma", symbol)
+    assert names[:5] == ["q", "k", "v", "out", "lse"]
+    assert argtypes[4] is ctypes.c_void_p
+
+
+def test_wgmma_backward_takes_lse_and_scratch_pointers_in_order():
+    """q, k, v, out, dout, lse, dq, dk, dv, stats: ten pointers, as the
+    wrapper passes them."""
+    names = _c_names("flash_attention_bwd_wgmma", "flash_attention_bwd_wgmma_launch")
+    assert names[:10] == ["q", "k", "v", "out", "dout", "lse", "dq", "dk", "dv", "stats"]
+    assert tfa._BWD_WGMMA_ARGTYPES[:10] == (ctypes.c_void_p,) * 10
