@@ -12,8 +12,11 @@ Phases (any failure exits non-zero; nothing is caught):
                  library's TF32 tensor-core instructions (HMMA...TF32),
                  ell_combine's and ell_spmm's LDG.E.128 (16-byte loads),
                  the wgmma flash backward's HGMMA and UTMALDG (its
-                 USETMAXREG, setmaxnreg, counted); registers and spills of
-                 every instance of the wgmma flash backward, and of the
+                 USETMAXREG, setmaxnreg, counted), the TF32 flash
+                 backward's HMMA...TF32 and no float atomics (RED/ATOM
+                 .F32); registers and spills of every instance of both
+                 flash backwards (the TF32 one's float32 Dh 64 causal
+                 instances, the main path's, must not spill), and of the
                  TF32 flash kernel, ell_spmm and ell_combine_batched
                  (ptxas -v), the main path's
                  instances by name (ell_combine_batched: both routes at
@@ -256,19 +259,20 @@ Phases (any failure exits non-zero; nothing is caught):
                  ell_combine_batched;
  14. training  — the training path (`repro_torch.launch.train`, `optim`,
                  `data`, `checkpoint`, the models' `loss_fn`s): (a) the
-                 flash backward that `route_bwd` picks
-                 (`csrc/flash_attention_bwd_wgmma.cu` for bfloat16 with
-                 Dh % 8 == 0, given the wgmma forward's lse;
-                 `csrc/flash_attention_bwd.cu` for the rest), one launch a
-                 call under its own counter, against float64 autograd of
+                 flash backward that `route_bwd` picks, given its forward's
+                 lse (`csrc/flash_attention_bwd_wgmma.cu` for bfloat16
+                 with Dh % 8 == 0; `csrc/flash_attention_bwd.cu`, TF32
+                 mma.sync, for the rest), one launch a call under its own
+                 counter, against float64 autograd of
                  `attention_plain` on the same inputs over BWD_SWEEP (Sq
                  and Skv ragged across the tiles, Sq < Skv and Sq > Skv,
                  Hq / Hkv 1 to 8, Dh 12 to 128), float32 within
                  BWD_F32_ERR of the largest entry, bfloat16 within
                  BWD_BF16_REL_ERR in relative norm, the wgmma kernel also
-                 within BWD_ROUNDED_REL_ERR of `attention_bwd_rounded`,
-                 causal and not, every call repeated bit-equal, and as a
-                 control the gradients with key 0's row of dK and dV
+                 within BWD_ROUNDED_REL_ERR of `attention_bwd_rounded` and
+                 the TF32 one in float32 within BWD_F32_ERR of
+                 `attention_bwd_3xtf32`, causal and not, every call
+                 repeated bit-equal, and as a control the gradients with key 0's row of dK and dV
                  dropped must miss both;
                  (b) the gradient scatters (`gather_rows`, the sum
                  backwards of segment_reduce and embedding_bag) at the main
@@ -293,7 +297,7 @@ Phases (any failure exits non-zero; nothing is caught):
                  its bound, plain version and the backward of
                  scaled_dot_product_attention (query heads permuted to the
                  port's h % Hkv map); (c) must launch only the wgmma
-                 backward, once a layer a step, and (d) only the CUDA-core
+                 backward, once a layer a step, and (d) only the TF32
                  one, likewise;
  15. report    — the `kernels` JSON line (all eleven kernels, flash as two
                  forward routes and two backward routes; ell_combine, the batched
@@ -3751,7 +3755,7 @@ SCATTER_CASES = (("gather_rows", 51200, 1024, (8, 1024)),
                  ("embedding_bag", 3_900_000, 10, (4096, 39)))
 #: the flash backward's timed shapes: granite-moe-1b-a400m's layer ((c)'s,
 #: in bf16: the wgmma backward; and in float32), granite-3-8b's, and (d)'s
-#: 100m layer in float32 (the CUDA-core backward's main path); each
+#: 100m layer in float32 (the TF32 backward's main path); each
 #: kernel's row is its first shape
 BWD_TIMED = (("granite-moe", (8, 16, 8, 1024, 64), torch.bfloat16),
              ("100m float32", (8, 12, 6, 128, 64), torch.float32),
@@ -3792,24 +3796,24 @@ def rounded_err(got, rounded) -> float:
 
 
 def forward_for_bwd(fa, q, k, v, causal: bool):
-    """(out, lse) of the flash forward as training runs it: the wgmma
-    forward writes lse for the wgmma backward; else lse is None."""
-    if fa.route_bwd(q.dtype, q.shape[-1]) == fa.BACKWARD_WGMMA:
-        return fa.flash_attention_cuda(q, k, v, causal, with_lse=True)
-    return fa.flash_attention_cuda(q, k, v, causal), None
+    """(out, lse) of the flash forward as training runs it: either forward
+    route writes lse for its backward."""
+    return fa.flash_attention_cuda(q, k, v, causal, with_lse=True)
 
 
 def sweep_flash_bwd(dev, rng, fa, ops) -> dict:
     """(a) The backward that `route_bwd` picks, one launch a call under its
     own counter, against float64 autograd of the plain attention on the
     same inputs, both dtypes, causal and not; the wgmma kernel also against
-    `attention_bwd_rounded`; each call repeated and bit-equal; a row that
-    sees nothing gets a zero dq. The control: the kernel's gradients with
-    key 0's row of dK and dV set to 0 must miss every tolerance. Returns
-    each kernel's worst max |kernel - reference| (float64 autograd for the
-    CUDA-core kernel, `attention_bwd_rounded` for the wgmma one)."""
+    `attention_bwd_rounded`, the TF32 one in float32 against
+    `attention_bwd_3xtf32` (BWD_F32_ERR of the largest entry); each call
+    repeated and bit-equal; a row that sees nothing gets a zero dq. The
+    control: the kernel's gradients with key 0's row of dK and dV set to 0
+    must miss every tolerance. Returns each kernel's worst max |kernel -
+    reference| (float64 autograd for the TF32 kernel,
+    `attention_bwd_rounded` for the wgmma one)."""
     worst_abs = {fa.BACKWARD: 0.0, fa.BACKWARD_WGMMA: 0.0}
-    worst = {fa.BACKWARD: 0.0, fa.BACKWARD_WGMMA: 0.0, "rounded": 0.0}
+    worst = {fa.BACKWARD: 0.0, fa.BACKWARD_WGMMA: 0.0, "rounded": 0.0, "3xtf32": 0.0}
     least_control = {"exact": float("inf"), "rounded": float("inf")}
     for b, hq, hkv, sq, skv, d in BWD_SWEEP:
         base = [rng.standard_normal(s) for s in ((b, hq, sq, d), (b, hkv, skv, d),
@@ -3852,6 +3856,13 @@ def sweep_flash_bwd(dev, rng, fa, ops) -> dict:
                         worst_abs[kernel] = max(worst_abs[kernel], max(
                             abs_err(a.double()[:, :, a.shape[2] - x.shape[2]:], x)
                             for a, x in zip(got, exact)))
+                        model = fa.attention_bwd_3xtf32(q, k, v, out, dout, causal)
+                        m = max(float((a.double() - x.double()).abs().max()
+                                      / x.double().abs().max()) for a, x in zip(got, model))
+                        if not m <= fa.BWD_F32_ERR:
+                            raise AssertionError(f"{what}: {m:.3g} from attention_bwd_3xtf32 "
+                                                 f"> {fa.BWD_F32_ERR}")
+                        worst["3xtf32"] = max(worst["3xtf32"], m)
                     continue
                 rounded = fa.attention_bwd_rounded(q, k, v, out, dout, causal)
                 r = rounded_err(got, rounded)
@@ -3870,7 +3881,8 @@ def sweep_flash_bwd(dev, rng, fa, ops) -> dict:
     log(f"[14 training] (a) flash backward sweep ({len(BWD_SWEEP)} shapes x 2 dtypes x causal "
         f"and not) against float64 autograd of attention_plain: {fa.BACKWARD} (float32 and "
         f"bf16 with Dh % 8 != 0) worst {worst[fa.BACKWARD]:.3g} (float32: of the largest entry, "
-        f"limit {fa.BWD_F32_ERR}; bf16: relative norm, limit {fa.BWD_BF16_REL_ERR}), "
+        f"limit {fa.BWD_F32_ERR}; bf16: relative norm, limit {fa.BWD_BF16_REL_ERR}), float32 "
+        f"{worst['3xtf32']:.3g} of the largest entry from attention_bwd_3xtf32, "
         f"{fa.BACKWARD_WGMMA} (bf16) worst relative norm {worst[fa.BACKWARD_WGMMA]:.3g} (limit "
         f"{fa.BWD_BF16_REL_ERR}) and {worst['rounded']:.3g} from attention_bwd_rounded (limit "
         f"{fa.BWD_ROUNDED_REL_ERR}); every call bit-equal on a repeat; with key 0's row of dK "
@@ -4025,7 +4037,7 @@ def granite_moe_training(dev, ops) -> collections.Counter:
     if (launches["flash_attention_bwd_wgmma"] != cfg.n_layers * TRAIN_STEPS
             or launches["flash_attention_bwd"]):
         raise AssertionError(f"{TRAIN_ARCH} training: the backward should launch the wgmma "
-                             f"kernel once a layer a step and the CUDA-core one never: "
+                             f"kernel once a layer a step and the TF32 one never: "
                              f"{dict(launches)}")
     x, y = batches[-1]
     leaves = T.leaves(params)
@@ -4086,7 +4098,7 @@ def main_resume(root: Path) -> collections.Counter:
                                          MAIN_ARGV[MAIN_ARGV.index("--preset") + 1]).n_layers
             if launches["flash_attention_bwd"] != layers * steps or launches[
                     "flash_attention_bwd_wgmma"]:
-                raise AssertionError(f"the float32 run should launch the CUDA-core backward "
+                raise AssertionError(f"the float32 run should launch the TF32 backward "
                                      f"once a layer a step and the wgmma one never: "
                                      f"{dict(launches)}")
     if f"[resume] from step {mid}" not in outs[1]:
@@ -4212,10 +4224,9 @@ def family_training(dev, ops, sr, bag, fa) -> collections.Counter:
 
 def time_flash_bwd(dev, fa, report, worst_abs: dict, launches) -> None:
     """The flash backward's rows, timed at BWD_TIMED's shapes by the kernel
-    that `route_bwd` picks (given the wgmma forward's lse where it is the
-    wgmma one), beside its plain version (`attention_bwd_rounded` for the
-    wgmma kernel, `attention_bwd_plain` for the CUDA-core one), its
-    operations bound (five products over the causal pairs) and the backward
+    that `route_bwd` picks (given its forward's lse), beside its plain
+    version (`attention_bwd_rounded` for the wgmma kernel,
+    `attention_bwd_plain` for the TF32 one), its operations bound (five products over the causal pairs) and the backward
     of scaled_dot_product_attention with the query heads permuted so that
     the library's h // group map reads the kv head the port's h % Hkv map
     reads. At each shape one call's (dq, dk, dv) is held against float64
@@ -4407,6 +4418,32 @@ def main() -> int:
                              if m.group(2) else "")
         per.append(f"{what} {regs} registers, {spill} spill bytes")
     log(f"[2 build] {bwd_src}: {'; '.join(per)}")
+    # the TF32 backward: mma.sync in TF32, and no spill in the instances the
+    # main path runs (float32, Dh 64, causal: (d)'s 100m layer, granite-moe's)
+    tf32_bwd = _build.KERNELS[fa.BACKWARD]
+    sass = sass_of(tf32_bwd)
+    hmma = collections.Counter(re.findall(r"HMMA\.\S*TF32\S*", sass))
+    atomics = re.findall(r"\b(?:RED|ATOM)\S*\.F32", sass)
+    log(f"[2 build] {tf32_bwd} SASS: {dict(hmma)}, float atomics {len(atomics)}")
+    if not hmma or atomics:
+        raise AssertionError("the TF32 flash backward needs TF32 tensor-core instructions "
+                             "and no float atomics")
+    per, on_path, spilled = [], [], []
+    for name, spill, regs in ptxas_instances(_build.ptxas_report(tf32_bwd)):
+        m = re.search(r"(dkdv_kernel|dq_kernel|prep_kernel)I(f|13__nv_bfloat16)"
+                      r"(?:Li(\d+)ELb(\d)E)?", name)
+        what = (f"{m.group(1)}<{'float' if m.group(2) == 'f' else 'bf16'}"
+                + (f", {m.group(3)}, {'causal' if m.group(4) == '1' else 'full'}"
+                   if m.group(3) else "") + ">")
+        per.append(f"{what} {regs} registers, {spill} spill bytes")
+        if m.group(2) == "f" and m.group(3) == "64" and m.group(4) == "1":
+            on_path.append(what)
+            if spill:
+                spilled.append(what)
+    log(f"[2 build] {tf32_bwd}: {'; '.join(per)}")
+    if len(on_path) != 2 or spilled:
+        raise AssertionError(f"the TF32 backward's main-path instances {on_path}: "
+                             f"spilled {spilled}")
     # registers and spills of every instance; the main path's by name:
     # flash_kernel<float, DP = 128, causal, cp.async>; spmm_kernel<float, V, L, C>
     # at D = 64 (V = 4, L = 16, C = 1) and D = 70 (V = 2, L = 16, C = 3)

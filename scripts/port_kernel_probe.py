@@ -106,14 +106,24 @@ batched  — `ell_combine_batched_cuda` on the four ELL slices of RMAT scale
            L2 reuse that the hubs give. CUDA events.
 flashbwd — the flash backward in bf16 at granite-moe-1b-a400m's layer (B =
            8, 16 / 8 heads of 64, S = 1024, causal) and granite-3-8b's (B =
-           2, 32 / 8 heads of 128), as `flash_attention_bwd_cuda` takes it in
-           each tree (with the wgmma forward's lse where the tree's
-           `route_bwd` picks the wgmma kernel, else without), each call's
-           (dq, dk, dv) against `attention_bwd_rounded` in relative norm;
-           --root and --parent as for flash32 (parent, change, change,
-           parent on the same inputs). Then this tree's wgmma forward with
-           and without `with_lse`, and its backward split by kernel (the
-           Delta pass, dK/dV, dQ: torch.profiler device time). CUDA events.
+           2, 32 / 8 heads of 128), and in float32 at the 100m preset's
+           layer (B = 8, 12 / 6 heads of 64, S = 128, causal) and
+           granite-moe's, as `flash_attention_bwd_cuda` takes it in each tree
+           (with the forward's lse where the tree's backward takes one, else
+           without), each call's (dq, dk, dv) against `attention_bwd_rounded`
+           (bf16, relative norm) or `attention_bwd_plain` (float32, max |a -
+           p| over max |p|, within BWD_F32_ERR); --root and --parent as for
+           flash32 (parent, change, change, parent on the same inputs). Then
+           this tree's forwards with and without `with_lse` (wgmma for bf16;
+           TF32 for float32, beside its bound and float32
+           `scaled_dot_product_attention`), and its backwards split by
+           kernel (the Delta pass, dK/dV, dQ: torch.profiler device time).
+           Last, the TF32 backward built with other tiles at D <= 64
+           (`BWD_VARIANTS`: warps a block, rows a streamed tile;
+           -DFLASH_BWD_WARPS, -DFLASH_BWD_STEP) into `build/probe/`, the
+           registers and spill bytes of their float32 Dh 64 causal
+           instances, each held to `attention_bwd_plain` and timed at the
+           two float32 shapes in two rounds. CUDA events.
 
 It fails where there is no GPU or a variant does not build or disagrees.
 """
@@ -133,7 +143,8 @@ import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
-from chip_smoke import BAG_BATCHES, card_line, cuda_ms, graph_ms, host_us  # noqa: E402
+from chip_smoke import (BAG_BATCHES, TF32_OPS_PER_S, bound_ms, card_line, cuda_ms,  # noqa: E402
+                        graph_ms, host_us)
 
 #: the probe entry's C parameters: flash_attention_wgmma_launch's (lse
 #: after the output), with the kv-tile width and the ring depth before the
@@ -141,6 +152,9 @@ from chip_smoke import BAG_BATCHES, card_line, cuda_ms, graph_ms, host_us  # noq
 PROBE_ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 6 + (
     ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
 VARIANTS = [(64, 2), (64, 3), (128, 2), (128, 3)]     # (BKV, STAGES); (64, 2) ships
+#: the TF32 backward's tiles at D <= 64: (warps a block, rows of the streamed
+#: tile); (4, 32) ships
+BWD_VARIANTS = [(4, 32), (2, 16), (4, 16), (2, 32)]
 
 
 def log(msg: str) -> None:
@@ -350,36 +364,73 @@ def flash32(dev, root: Path, parent) -> None:
                 log(f"[flash32] change: {what}: {e.key[:60]} {us / 10:.2f} us a call")
 
 
+def f32_err(got, ref) -> float:
+    """max |a - p| over max |p|, worst of dq, dk, dv (BWD_F32_ERR's reading)."""
+    return max(float((a.double() - r.double()).abs().max() / r.double().abs().max())
+               for a, r in zip(got, ref))
+
+
+def tree_bwd(mod, q, k, v, out, dout, lse):
+    """The tree's backward as it takes it: with the forward's lse where it
+    takes one (every route since the TF32 redesign; the wgmma route before)."""
+    try:
+        return mod.flash_attention_bwd_cuda(q, k, v, out, dout, True, lse)
+    except ValueError as e:             # an earlier tree: its CUDA-core route takes no lse
+        if "lse" not in str(e):
+            raise
+        return mod.flash_attention_bwd_cuda(q, k, v, out, dout, True)
+
+
 def flash_bwd(dev, root: Path, parent) -> None:
     order = trees_in_turns(root, parent, ("flash_attention",))
     fa = order[1 if parent is not None else 0][1]
     gen = torch.Generator(device=dev)
     gen.manual_seed(25)
     cases = {}
-    for what, (b, hq, hkv, s, d) in (("granite-moe layer", (8, 16, 8, 1024, 64)),
-                                     ("granite-3-8b layer", (2, 32, 8, 1024, 128))):
-        q = torch.randn(b, hq, s, d, device=dev, generator=gen).to(torch.bfloat16)
-        k, v = (torch.randn(b, hkv, s, d, device=dev, generator=gen).to(torch.bfloat16)
-                for _ in range(2))
-        dout = torch.randn(b, hq, s, d, device=dev, generator=gen).to(torch.bfloat16)
+    for what, (b, hq, hkv, s, d), dt in (
+            ("granite-moe layer", (8, 16, 8, 1024, 64), torch.bfloat16),
+            ("granite-3-8b layer", (2, 32, 8, 1024, 128), torch.bfloat16),
+            ("100m layer float32", (8, 12, 6, 128, 64), torch.float32),
+            ("granite-moe layer float32", (8, 16, 8, 1024, 64), torch.float32)):
+        q = torch.randn(b, hq, s, d, device=dev, generator=gen).to(dt)
+        k, v = (torch.randn(b, hkv, s, d, device=dev, generator=gen).to(dt) for _ in range(2))
+        dout = torch.randn(b, hq, s, d, device=dev, generator=gen).to(dt)
         out, lse = fa.flash_attention_cuda(q, k, v, True, with_lse=True)
-        cases[what] = (q, k, v, dout, out, lse, fa.attention_bwd_rounded(q, k, v, out, dout))
+        plain = fa.attention_bwd_rounded if dt == torch.bfloat16 else fa.attention_bwd_plain
+        cases[what] = (q, k, v, dout, out, lse, plain(q, k, v, out, dout))
     for label, mod in order:
         for what, (q, k, v, dout, out, lse, ref) in cases.items():
-            route_bwd = getattr(mod, "route_bwd", None)    # a tree before the wgmma route
-            wgmma = route_bwd is not None and route_bwd(q.dtype, q.shape[-1]) == mod.BACKWARD_WGMMA
-            args = (q, k, v, out, dout, True) + ((lse,) if wgmma else ())
-            got = mod.flash_attention_bwd_cuda(*args)
-            err = max(float((a.float() - r.float()).norm() / r.float().norm())
-                      for a, r in zip(got, ref))
-            ms = cuda_ms(lambda: mod.flash_attention_bwd_cuda(*args), 10, 3, 3)
-            log(f"[flashbwd] {label}: {what}: {'wgmma' if wgmma else 'CUDA-core'} backward "
-                f"{ms:.4f} ms, {err:.3g} from attention_bwd_rounded (relative norm, worst "
-                "of dq, dk, dv)")
+            kernel = mod.route_bwd(q.dtype, q.shape[-1])
+            got = tree_bwd(mod, q, k, v, out, dout, lse)
+            if q.dtype == torch.float32:
+                err = f32_err(got, ref)
+                if not err <= mod.BWD_F32_ERR:
+                    raise AssertionError(f"{label} {what}: {err:.3g} from attention_bwd_plain")
+                held = f"{err:.3g} from attention_bwd_plain (max |a - p| / max |p|)"
+            else:
+                err = max(float((a.float() - r.float()).norm() / r.float().norm())
+                          for a, r in zip(got, ref))
+                held = (f"{err:.3g} from attention_bwd_rounded (relative norm, worst of dq, "
+                        "dk, dv)")
+            ms = cuda_ms(lambda: tree_bwd(mod, q, k, v, out, dout, lse), 10, 3, 3)
+            log(f"[flashbwd] {label}: {what}: {kernel} {ms:.4f} ms, {held}")
     for what, (q, k, v, *_) in cases.items():
         bare = cuda_ms(lambda: fa.flash_attention_cuda(q, k, v, True), 20, 3, 3)
         kept = cuda_ms(lambda: fa.flash_attention_cuda(q, k, v, True, with_lse=True), 20, 3, 3)
-        log(f"[flashbwd] change: {what}: wgmma forward {bare:.4f} ms, with lse {kept:.4f} ms")
+        line = (f"[flashbwd] change: {what}: {fa.route(q.dtype, q.shape[-1])} forward "
+                f"{bare:.4f} ms, with lse {kept:.4f} ms")
+        if q.dtype == torch.float32:   # beside its bound and the library's forward
+            b, hq, s, d = q.shape
+            group = hq // k.shape[1]
+            kr, vr = k.repeat(1, group, 1, 1), v.repeat(1, group, 1, 1)   # group-major
+            lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, kr, vr, is_causal=True),
+                          20, 3, 3)
+            pairs = b * hq * s * (s + 1) // 2          # two products, three TF32 passes
+            bnd = bound_ms((2 * q.numel() + 2 * k.numel()) * 4, 3 * 4 * pairs * d,
+                           TF32_OPS_PER_S)
+            line += (f"; bound {bnd[0]:.4f} ms by {bnd[1]}, float32 "
+                     f"scaled_dot_product_attention (kv heads repeated) {lib:.4f} ms")
+        log(line)
     from torch.profiler import ProfilerActivity, profile
 
     for what, (q, k, v, dout, out, lse, _) in cases.items():
@@ -391,6 +442,63 @@ def flash_bwd(dev, root: Path, parent) -> None:
             us = getattr(e, "self_device_time_total", 0) or 0
             if us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
                 log(f"[flashbwd] change: {what}: {e.key[:70]} {us / 10:.2f} us a call")
+    bwd_variants(dev, fa, {w: c for w, c in cases.items() if c[0].dtype == torch.float32})
+
+
+def bwd_variants(dev, fa, cases) -> None:
+    """The TF32 backward with each of BWD_VARIANTS' tiles, built in parallel
+    into build/probe/, held to `attention_bwd_plain` and timed in two rounds
+    at the float32 cases."""
+    from repro_torch.kernels import _build
+
+    out_dir = _build.BUILD_DIR.parent / "probe"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    for w, st in BWD_VARIANTS:
+        lib = out_dir / f"libflash_attention_bwd_w{w}_s{st}.so"
+        jobs[(w, st)] = (lib, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, f"-DFLASH_BWD_WARPS={w}",
+             f"-DFLASH_BWD_STEP={st}", "-o", str(lib),
+             str(_build.CSRC / "flash_attention_bwd.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    fns = {}
+    for (w, st), (lib, proc) in jobs.items():
+        report = proc.communicate(timeout=900)[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"the w={w} step={st} build failed:\n{report[-3000:]}")
+        for kind, spill, regs in re.findall(
+                r"Function properties for \S*(dkdv_kernel|dq_kernel)IfLi64ELb1E\S*\n"
+                r"\s*\d+ bytes stack frame, (\d+) bytes spill stores[\s\S]*?Used (\d+) "
+                r"registers", report):
+            log(f"[flashbwd] variant warps={w} step={st}: {kind}<float, 64, causal> {regs} "
+                f"registers, {spill} bytes spill stores")
+        fn = ctypes.CDLL(str(lib)).flash_attention_bwd_launch
+        fn.argtypes, fn.restype = list(fa._BWD_ARGTYPES), ctypes.c_int
+        fns[(w, st)] = fn
+
+    def run(fn, q, k, v, out, dout, lse):
+        b, hq, sq, d = q.shape
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        stats = torch.empty(fa.bwd_stats_floats(b, hq, sq), device=dev)
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+                 lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
+                 b, hq, k.shape[1], sq, k.shape[2], d, 1.0 / d ** 0.5, 1, 0,
+                 _build.stream_of(dev))
+        _build.check(err, "flash_attention_bwd variant")
+        return dq, dk, dv
+
+    for key, fn in fns.items():
+        for what, (q, k, v, dout, out, lse, ref) in cases.items():
+            err = f32_err(run(fn, q, k, v, out, dout, lse), ref)
+            if not err <= fa.BWD_F32_ERR:
+                raise AssertionError(f"variant {key} at {what}: {err:.3g} from the plain version")
+    for rnd in range(2):
+        for (w, st), fn in fns.items():
+            times = {}
+            for what, (q, k, v, dout, out, lse, _) in cases.items():
+                times[what] = cuda_ms(lambda: run(fn, q, k, v, out, dout, lse), 10, 3, 3)
+            log(f"[flashbwd] round {rnd}: variant warps={w} step={st}: "
+                + ", ".join(f"{what} {ms:.4f} ms" for what, ms in times.items()))
 
 
 def rmat22_slices(dev):

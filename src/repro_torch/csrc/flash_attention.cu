@@ -14,6 +14,10 @@
 // rounded to bfloat16 before P.V (l sums them unrounded); the output is
 // acc / max(l, 1e-30), cast to q's type. A row that sees no kv position
 // (Sq > Skv under causal) is not defined (the reference gives NaN).
+// Given an `lse` pointer (training: the backward takes it), each row's
+// natural log-sum-exp m ln 2 + ln l is written too, +inf for a row that
+// sees nothing (its m stays at the mask value, and l counts its masked
+// keys); the output is the same bits either way.
 //
 // Bound on the H100: operations. At granite-3-8b's layer (B = 4, S = 1024,
 // D = 128, causal) attention does ~410 flops per byte of q, k, v and out.
@@ -21,15 +25,12 @@
 // cores a float32 product costs three TF32 products (below), 3 x 34.4 GFLOP
 // at 495 TFLOP/s = 0.21 ms. This kernel takes the tensor cores.
 //
-// The 3xTF32 split: each float32 operand x becomes big = x rounded to TF32
-// (10 mantissa bits, to nearest, ties away from zero: cvt.rna's rounding,
-// done on the bits) and small = (x - big) rounded the same way (x - big is
-// exact in float32), and a product is accumulated as small*big + big*small
-// + big*big in float32; the dropped small*small term is below 2^-22 of the
-// product. A single TF32 pass would miss the 2e-4 this kernel is held to
-// (~1e-3 at D = 128). bfloat16 values are exact in TF32 (their small halves
-// are zero), so the bfloat16 route issues only big*big, and P, rounded to
-// bfloat16, likewise. `kernels/flash_attention.py::split_tf32` and
+// The 3xTF32 split (`mma_tf32.cuh`, shared with the backward): each float32
+// operand is split into a big and a small TF32 half and a product is
+// small*big + big*small + big*big in float32. A single TF32 pass would miss
+// the 2e-4 this kernel is held to (~1e-3 at D = 128). bfloat16 values are
+// exact in TF32, so the bfloat16 route runs only big*big, and P, rounded
+// to bfloat16, likewise. `kernels/flash_attention.py::split_tf32` and
 // `attention_3xtf32` are the plain versions of the split and of the kernel.
 //
 // Route: mma.sync.m16n8k8 (tf32 in, float32 accumulate) rather than wgmma.
@@ -64,14 +65,17 @@
 // The wrapper allocates the planes (`tf32_scratch_floats`).
 
 #include <algorithm>
+#include <cmath>
 #include <cstdint>
 
 #include "lane_group.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
 using repro::from_f32;
 using repro::to_f32;
+using namespace repro::tf32;
 
 constexpr int THREADS = 256;  // 8 warps
 constexpr int BQ = 128;       // 16 q rows a warp
@@ -80,6 +84,7 @@ constexpr int STAGES = 2;
 constexpr int NT = BKV / 8;   // n-tiles of S, k-steps of P.V
 constexpr float NEG = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 // Row strides in shared memory, in floats: Q rows; K plane rows (2 DP
 // floats: big and small of each d pair); V plane pair-rows (4 DP floats:
@@ -99,60 +104,6 @@ constexpr size_t smem_bytes() {
 template <int DP>
 long long plane_floats(int BH, int Skv) {
   return (long long)BH * ((long long)Skv * 2 * DP + (long long)(Skv + 1) / 2 * 4 * DP);
-}
-
-// x rounded to TF32 as cvt.rna.tf32.f32 rounds it (to nearest, ties away
-// from zero), done on the bits: the same values for finite x, without the
-// instructions cvt.rna spends on NaN and infinity.
-__device__ __forceinline__ uint32_t rna_bits(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-// x as (big, small) TF32 halves; without SPLIT, x is exact in TF32 already
-// (a bfloat16 value) and small is not used.
-template <bool SPLIT>
-__device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
-  if (SPLIT) {
-    big = rna_bits(x);
-    small = rna_bits(x - __uint_as_float(big));
-  } else {
-    big = __float_as_uint(x);
-  }
-}
-
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c += a * b, with the 3xTF32 terms small*big + big*small + big*big.
-template <bool SPLIT>
-__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ab)[4],
-                                     const uint32_t (&as)[4], uint32_t b0b,
-                                     uint32_t b1b, uint32_t b0s, uint32_t b1s) {
-  if (SPLIT) {
-    mma(c, as, b0b, b1b);
-    mma(c, ab, b0s, b1s);
-  }
-  mma(c, ab, b0b, b1b);
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool fill) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d),
-               "l"(src), "r"(fill ? 16 : 0));
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;");
-}
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N));
 }
 
 // rows [r0, r0 + ROWS) of Q (rows, D) into shared memory with row stride
@@ -239,8 +190,8 @@ split_kv(const T* __restrict__ k, const T* __restrict__ v, float4* __restrict__ 
 template <typename T, int DP, bool CAUSAL, bool ASYNC>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_kernel(const T* __restrict__ q, const float* __restrict__ kpl,
-             const float* __restrict__ vpl, T* __restrict__ o, int Hq, int Hkv,
-             int Sq, int Skv, int D, float scale2, int kv_offset) {
+             const float* __restrict__ vpl, T* __restrict__ o, float* __restrict__ lse,
+             int Hq, int Hkv, int Sq, int Skv, int D, float scale2, int kv_offset) {
   constexpr bool SPLIT = std::is_same<T, float>::value;
   constexpr int KS = DP / 8;   // k-steps of Q.K^T, n-tiles of the output
   extern __shared__ float smem[];
@@ -396,6 +347,11 @@ flash_kernel(const T* __restrict__ q, const float* __restrict__ kpl,
   }
   const float inv0 = 1.0f / fmaxf(l0, 1e-30f), inv1 = 1.0f / fmaxf(l1, 1e-30f);
   const int row0 = q0 + r_lo, row1 = row0 + 8;
+  if (lse != nullptr && t == 0) {   // m stays NEG where no kv position is seen
+    float* lp = lse + ((long long)b * Hq + h) * Sq;
+    if (row0 < Sq) lp[row0] = m0 == NEG ? INFINITY : m0 * LN2 + logf(l0);
+    if (row1 < Sq) lp[row1] = m1 == NEG ? INFINITY : m1 * LN2 + logf(l1);
+  }
 #pragma unroll
   for (int j = 0; j < KS; ++j) {
 #pragma unroll
@@ -409,7 +365,8 @@ flash_kernel(const T* __restrict__ q, const float* __restrict__ kpl,
 }
 
 template <typename T, int DP, bool CAUSAL>
-cudaError_t go(const void* q, const void* k, const void* v, void* o, float* scratch,
+cudaError_t go(const void* q, const void* k, const void* v, void* o, float* lse,
+               float* scratch,
                long long scratch_floats, int B, int Hq, int Hkv, int Sq, int Skv,
                int D, float scale, cudaStream_t s) {
   const int BH = B * Hkv;
@@ -430,15 +387,15 @@ cudaError_t go(const void* q, const void* k, const void* v, void* o, float* scra
                              (int)bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
-  kern<<<grid, THREADS, bytes, s>>>((const T*)q, kpl, vpl, (T*)o, Hq, Hkv, Sq, Skv, D,
+  kern<<<grid, THREADS, bytes, s>>>((const T*)q, kpl, vpl, (T*)o, lse, Hq, Hkv, Sq, Skv, D,
                                     scale * LOG2E, Skv - Sq);
   return cudaGetLastError();
 }
 
-#define ARGS q, k, v, o, scratch, scratch_floats, B, Hq, Hkv, Sq, Skv, D, scale, s
+#define ARGS q, k, v, o, lse, scratch, scratch_floats, B, Hq, Hkv, Sq, Skv, D, scale, s
 template <typename T, bool CAUSAL>
 cudaError_t by_width(const void* q, const void* k, const void* v, void* o,
-                     float* scratch, long long scratch_floats, int B, int Hq,
+                     float* lse, float* scratch, long long scratch_floats, int B, int Hq,
                      int Hkv, int Sq, int Skv, int D, float scale, cudaStream_t s) {
   if (D <= 16) return go<T, 16, CAUSAL>(ARGS);
   if (D <= 32) return go<T, 32, CAUSAL>(ARGS);
@@ -449,7 +406,7 @@ cudaError_t by_width(const void* q, const void* k, const void* v, void* o,
 
 template <typename T>
 cudaError_t by_causal(int causal, const void* q, const void* k, const void* v,
-                      void* o, float* scratch, long long scratch_floats, int B,
+                      void* o, float* lse, float* scratch, long long scratch_floats, int B,
                       int Hq, int Hkv, int Sq, int Skv, int D, float scale,
                       cudaStream_t s) {
   return causal ? by_width<T, true>(ARGS) : by_width<T, false>(ARGS);
@@ -460,13 +417,14 @@ cudaError_t by_causal(int causal, const void* q, const void* k, const void* v,
 
 // q (B, Hq, Sq, D), k and v (B, Hkv, Skv, D), out (B, Hq, Sq, D), contiguous,
 // of one type: dtype 0 = float32, 1 = bfloat16. Hq % Hkv == 0, 1 <= D <= 128.
-// scratch: 16-byte aligned float32 room for the split K and V planes,
-// B * Hkv * (Skv * 2 DP + ceil(Skv / 2) * 4 DP) floats, DP = D padded to 16,
+// lse: null, or float32 room for B Hq Sq values (each row's natural
+// log-sum-exp, +inf where a row sees no kv position). scratch: 16-byte
+// aligned float32 room for the split K and V planes, B * Hkv * (Skv * 2 DP + ceil(Skv / 2) * 4 DP) floats, DP = D padded to 16,
 // 32, 64, 96 or 128 (`flash_attention.tf32_scratch_floats`). Launches the
 // split pre-pass and the attention kernel on `stream`. Returns the first
 // CUDA error of the launches or the attribute call (0 on success).
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* out, void* scratch,
+                                      const void* v, void* out, void* lse, void* scratch,
                                       int scratch_floats, int B, int Hq, int Hkv,
                                       int Sq, int Skv, int D, float scale,
                                       int causal, int dtype, void* stream) {
@@ -476,9 +434,10 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   float* sc = (float*)scratch;
+  float* ls = (float*)lse;
   switch (dtype) {
-    case 0: return (int)by_causal<float>(causal, q, k, v, out, sc, scratch_floats, B, Hq, Hkv, Sq, Skv, D, scale, s);
-    case 1: return (int)by_causal<__nv_bfloat16>(causal, q, k, v, out, sc, scratch_floats, B, Hq, Hkv, Sq, Skv, D, scale, s);
+    case 0: return (int)by_causal<float>(causal, q, k, v, out, ls, sc, scratch_floats, B, Hq, Hkv, Sq, Skv, D, scale, s);
+    case 1: return (int)by_causal<__nv_bfloat16>(causal, q, k, v, out, ls, sc, scratch_floats, B, Hq, Hkv, Sq, Skv, D, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -29,8 +29,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 #: template flag of `ell_combine.cu`, counted apart; the batched engine's
 #: Q-wide pull has a source of its own; flash attention has two forward
 #: routes, wgmma for bfloat16 and mma.sync in TF32 (3xTF32 for float32) for
-#: the rest, and two backward routes by the same rule: wgmma for bfloat16,
-#: the CUDA cores for the rest)
+#: the rest, and two backward routes by the same rule)
 KERNELS = {"ell_combine": "ell_combine", "ell_combine_overlay": "ell_combine",
            "ell_combine_batched": "ell_combine_batched",
            "frontier_pack": "frontier_pack", "segment_reduce": "segment_reduce",

@@ -33,22 +33,24 @@ ROUNDED_REL_ERR in relative norm.
 The backward, for training, has no Pallas counterpart (the reference
 differentiates XLA's attention) and two kernels on the card, picked by
 `route_bwd(dtype, D)` with `route`'s rule. From q, k, v, the forward's
-output and its gradient each gives (dq, dk, dv) in q's dtype in three
-launches with no float atomics, so a call is bit-for-bit repeatable.
-bfloat16 with D % 8 == 0 goes to `csrc/flash_attention_bwd_wgmma.cu`
-(counted as `flash_attention_bwd_wgmma`): `wgmma` fed by TMA, P and dS
-rounded to bfloat16 before their products, float32 sums, and each row's
-log-sum-exp taken from the wgmma forward (`flash_attention_cuda(...,
-with_lse=True)`) rather than recomputed; its plain version at the same
+output, its gradient and the forward's log-sum-exp (`flash_attention_cuda(
+..., with_lse=True)`, which both forward routes write) each gives (dq, dk,
+dv) in q's dtype in three launches with no float atomics, so a call is
+bit-for-bit repeatable. bfloat16 with D % 8 == 0 goes to
+`csrc/flash_attention_bwd_wgmma.cu` (counted as
+`flash_attention_bwd_wgmma`): `wgmma` fed by TMA, P and dS rounded to
+bfloat16 before their products, float32 sums; its plain version at the same
 rounding points is `attention_bwd_rounded`, held to it within
 BWD_ROUNDED_REL_ERR. float32, and bfloat16 with D % 8 != 0, go to
-`csrc/flash_attention_bwd.cu` (counted as `flash_attention_bwd`), float32
-on the CUDA cores with the log-sum-exp recomputed: the exact derivative at
-the given inputs in float32, whose plain version is `attention_bwd_plain`.
-Both kernels are held to autograd of `attention_plain` in float64 on the
-same inputs: within BWD_F32_ERR (relative to the largest gradient entry)
-for float32 inputs, and within BWD_BF16_REL_ERR in relative norm for
-bfloat16 inputs, whose output and dout round to bfloat16.
+`csrc/flash_attention_bwd.cu` (counted as `flash_attention_bwd`): `mma.sync`
+in TF32 with every product split as the forward splits it (3xTF32), the
+exact derivative at the given inputs in float32, whose plain version is
+`attention_bwd_plain` and, at the kernel's rounding points,
+`attention_bwd_3xtf32`. Both kernels are held to autograd of
+`attention_plain` in float64 on the same inputs: within BWD_F32_ERR
+(relative to the largest gradient entry) for float32 inputs, and within
+BWD_BF16_REL_ERR in relative norm for bfloat16 inputs, whose output and
+dout round to bfloat16.
 """
 
 from __future__ import annotations
@@ -64,9 +66,9 @@ MAX_HEAD_DIM = 128
 #: the two kernels, by their names in `_build.KERNELS`: wgmma on bfloat16,
 #: mma.sync in TF32 (3xTF32 for float32) on the rest
 TENSOR_CORES, TF32 = "flash_attention", "flash_attention_f32"
-#: the two backward kernels, by their names in `_build.KERNELS`: the CUDA
-#: cores in float32 (float32, and bfloat16 with D % 8 != 0), wgmma on the
-#: rest of bfloat16
+#: the two backward kernels, by their names in `_build.KERNELS`: mma.sync in
+#: TF32 (3xTF32 for float32) for float32 and bfloat16 with D % 8 != 0, wgmma
+#: on the rest of bfloat16
 BACKWARD, BACKWARD_WGMMA = "flash_attention_bwd", "flash_attention_bwd_wgmma"
 #: bfloat16 kernel vs plain version, ||a - p|| / ||p||: the worst reading
 #: on an H100 (chip_smoke.py's sweep and granite shapes) is 6.4e-3, for the
@@ -95,8 +97,8 @@ BWD_BF16_REL_ERR = 5e-3
 #: smallest share of one key among up to 1,024, non-causal; a causal key 0
 #: is seen by every query and weighs far more)
 BWD_ROUNDED_REL_ERR = 2e-3
-#: the wgmma backward's scratch rows per (batch, q head): Sq rounded up to
-#: a multiple of this
+#: the backward's scratch rows per (batch, q head), on both routes: Sq
+#: rounded up to a multiple of this
 BWD_SQ_ALIGN = 128
 
 
@@ -235,10 +237,51 @@ def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def attention_bwd_3xtf32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         out: torch.Tensor, dout: torch.Tensor, causal: bool = True,
+                         passes: int = 3
+                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the TF32 backward kernel at its rounding points:
+    every product (S = q k^T, dP = dout v^T, dV = P^T dout, dK = dS^T q,
+    dQ = dS k) with both operands split as the kernel splits them
+    (`split_tf32`), small*big + big*small + big*big in float32 (`passes=1`:
+    big*big alone, a single TF32 pass); P = exp(s - lse) against the
+    log-sum-exp of those scores, Delta = rowsum(dout o out) in float32,
+    dS = P o (dP - Delta); dk and dv summed over the query heads that read
+    each kv head, dK and dQ scaled by 1/sqrt(D), each gradient rounded to
+    q's dtype once. A bfloat16 operand's small half is zero. A row that sees
+    no kv position gets a zero gradient."""
+    if passes not in (1, 3):
+        raise ValueError(f"passes={passes}: 1 or 3")
+    b, hq, hkv, _, skv, d = _shapes(q, k, v)
+    group = hq // hkv
+    kk = k.repeat(1, group, 1, 1)                  # group-major: head h -> h % hkv
+    vv = v.repeat(1, group, 1, 1)
+
+    def prod(eq, x, y):
+        xb, xs = split_tf32(x)
+        yb, ys = split_tf32(y)
+        out_ = torch.einsum(eq, xb, yb)
+        if passes == 3:
+            out_ = torch.einsum(eq, xs, yb) + torch.einsum(eq, xb, ys) + out_
+        return out_
+
+    scale = 1.0 / d ** 0.5
+    s = _masked(prod("bhqd,bhkd->bhqk", q, kk) * scale, causal)
+    p = torch.exp(s - _lse(s)[..., None])
+    dp = prod("bhqd,bhkd->bhqk", dout, vv)
+    delta = (dout.float() * out.float()).sum(dim=-1, keepdim=True)
+    ds = p * (dp - delta)
+    dq = prod("bhqk,bhkd->bhqd", ds, kk) * scale
+    dk = prod("bhqk,bhqd->bhkd", ds, q).reshape(b, group, hkv, skv, d).sum(dim=1)
+    dv = prod("bhqk,bhqd->bhkd", p, dout).reshape(b, group, hkv, skv, d).sum(dim=1)
+    return dq.to(q.dtype), (dk * scale).to(k.dtype), dv.to(v.dtype)
+
+
 def attention_lse(q: torch.Tensor, k: torch.Tensor, causal: bool = True) -> torch.Tensor:
     """(B, Hq, Sq) float32 natural log-sum-exp of each query row's scaled
     scores (q.k in float32, times 1/sqrt(D)), +inf for a row that sees no kv
-    position: what the wgmma forward writes given `with_lse`."""
+    position: what either forward writes given `with_lse`."""
     _, hq, hkv, _, _, d = _shapes(q, k, k)
     kk = k.float().repeat(1, hq // hkv, 1, 1)      # group-major: head h -> h % hkv
     return _lse(_masked(torch.einsum("bhqd,bhkd->bhqk", q.float(), kk) * (1.0 / d ** 0.5),
@@ -288,12 +331,12 @@ def route(dtype: torch.dtype, d: int) -> str:
 
 def route_bwd(dtype: torch.dtype, d: int) -> str:
     """The backward kernel for `dtype` and head dim `d`, by `route`'s rule:
-    wgmma for bfloat16 with d % 8 == 0, else the CUDA-core kernel."""
+    wgmma for bfloat16 with d % 8 == 0, else the TF32 mma.sync kernel."""
     return BACKWARD_WGMMA if route(dtype, d) == TENSOR_CORES else BACKWARD
 
 
 def bwd_stats_floats(b: int, hq: int, sq: int) -> int:
-    """float32 room for the wgmma backward's scratch: two planes (each row's
+    """float32 room for either backward's scratch: two planes (each row's
     log-sum-exp in the log2 domain, then its Delta) of b * hq rows of Sq
     rounded up to BWD_SQ_ALIGN."""
     return 2 * b * hq * (-(-sq // BWD_SQ_ALIGN) * BWD_SQ_ALIGN)
@@ -315,25 +358,23 @@ def tf32_scratch_floats(b: int, hkv: int, skv: int, d: int) -> int:
 #: D; scale; causal; stream
 _WGMMA_ARGTYPES = ((ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 6
                    + (ctypes.c_float, ctypes.c_int, ctypes.c_void_p))
-#: flash_attention_launch's: the wgmma entry's without lse, with the scratch
-#: pointer and its size after the output and the dtype before the stream
-_ARGTYPES = (_WGMMA_ARGTYPES[:4] + (ctypes.c_void_p, ctypes.c_int)
+#: flash_attention_launch's: the wgmma entry's, with the scratch pointer and
+#: its size after lse and the dtype before the stream
+_ARGTYPES = (_WGMMA_ARGTYPES[:5] + (ctypes.c_void_p, ctypes.c_int)
              + _WGMMA_ARGTYPES[5:13] + (ctypes.c_int, ctypes.c_void_p))
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool = True, with_lse: bool = False):
     """Launch the kernel that `route` picks, on PyTorch's current stream.
-    With `with_lse` (the wgmma route only) returns (out, lse): lse (B, Hq,
-    Sq) float32 as `attention_lse` computes it, for the wgmma backward; the
-    output is the same bits either way."""
+    With `with_lse` returns (out, lse): lse (B, Hq, Sq) float32 as
+    `attention_lse` computes it, +inf where a row sees no kv position, for
+    the backward; the output is the same bits either way."""
     dev = q.device
     b, hq, hkv, sq, skv, d = _shapes(q, k, v)
     if q.dtype not in DTYPES:
         raise TypeError(f"q has dtype {q.dtype}, expected float32 or bfloat16")
     kernel = route(q.dtype, d)
-    if with_lse and kernel != TENSOR_CORES:
-        raise ValueError(f"with_lse: only the wgmma route ({q.dtype}, D = {d} takes {kernel})")
     p_q = _build.require(q, "q", q.dtype, 4, dev)
     p_k = _build.require(k, "k", q.dtype, 4, dev)
     p_v = _build.require(v, "v", q.dtype, 4, dev)
@@ -357,8 +398,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              "indexes")
         scratch = torch.empty(room, dtype=torch.float32, device=dev)
         fn = _build.entry("flash_attention", "flash_attention_launch", _ARGTYPES)
-        args = (p_q, p_k, p_v, out.data_ptr(), scratch.data_ptr(), room) + args \
-            + (DTYPES[q.dtype],)
+        args = (p_q, p_k, p_v, out.data_ptr(), None if lse is None else lse.data_ptr(),
+                scratch.data_ptr(), room) + args + (DTYPES[q.dtype],)
     with _build.device_guard(dev):
         err = fn(*args, _build.stream_of(dev))
     _build.check(err, kernel)
@@ -366,14 +407,13 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (out, lse) if with_lse else out
 
 
-#: flash_attention_bwd_launch's: q, k, v, out, dout, dq, dk, dv, stats;
-#: B, Hq, Hkv, Sq, Skv, D; scale; causal, dtype; stream
-_BWD_ARGTYPES = ((ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 6
-                 + (ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p))
 #: flash_attention_bwd_wgmma_launch's: q, k, v, out, dout, lse, dq, dk, dv,
 #: stats; B, Hq, Hkv, Sq, Skv, D; scale; causal; stream
 _BWD_WGMMA_ARGTYPES = ((ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 6
                        + (ctypes.c_float, ctypes.c_int, ctypes.c_void_p))
+#: flash_attention_bwd_launch's: the wgmma entry's with the dtype before the
+#: stream
+_BWD_ARGTYPES = _BWD_WGMMA_ARGTYPES[:-1] + (ctypes.c_int, ctypes.c_void_p)
 
 
 def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -382,19 +422,21 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the backward kernel that `route_bwd` picks (three launches:
     row statistics, dK/dV, dQ) on PyTorch's current stream; returns (dq,
-    dk, dv) in q's dtype. The wgmma route needs `lse`, the forward's (B,
-    Hq, Sq) float32 log-sum-exp (`flash_attention_cuda(..., with_lse=True)`);
-    the CUDA-core route recomputes it and takes none."""
+    dk, dv) in q's dtype. Every backward takes `lse`, the forward's (B, Hq,
+    Sq) float32 log-sum-exp (`flash_attention_cuda(..., with_lse=True)`)."""
     dev = q.device
     b, hq, hkv, sq, skv, d = _shapes(q, k, v)
     if q.dtype not in DTYPES:
         raise TypeError(f"q has dtype {q.dtype}, expected float32 or bfloat16")
     kernel = route_bwd(q.dtype, d)
-    if (lse is None) != (kernel == BACKWARD):
-        wants = "no lse" if kernel == BACKWARD else "the wgmma forward's lse"
-        raise ValueError(f"{kernel} ({q.dtype}, D = {d}) takes {wants}")
+    if lse is None:
+        raise ValueError(f"{kernel} ({q.dtype}, D = {d}) takes the forward's lse "
+                         "(flash_attention_cuda(..., with_lse=True))")
+    if tuple(lse.shape) != (b, hq, sq):
+        raise ValueError(f"lse {tuple(lse.shape)} must be {(b, hq, sq)}")
     ptrs = [_build.require(t, name, q.dtype, 4, dev)
             for t, name in ((q, "q"), (k, "k"), (v, "v"), (out, "out"), (dout, "dout"))]
+    p_lse = _build.require(lse, "lse", torch.float32, 3, dev)
     if out.shape != q.shape or dout.shape != q.shape:
         raise ValueError(f"out {tuple(out.shape)} and dout {tuple(dout.shape)} must be "
                          f"q's shape {tuple(q.shape)}")
@@ -403,23 +445,17 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if skv < 1:
         raise ValueError("no kv positions")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    shape = (b, hq, hkv, sq, skv, d, 1.0 / (d ** 0.5), int(causal))
+    stats = torch.empty(bwd_stats_floats(b, hq, sq), dtype=torch.float32, device=dev)
+    args = (*ptrs, p_lse, dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
+            b, hq, hkv, sq, skv, d, 1.0 / (d ** 0.5), int(causal))
     if kernel == BACKWARD:
-        stats = torch.empty(2 * b * hq * sq, dtype=torch.float32, device=dev)
         fn = _build.entry(BACKWARD, "flash_attention_bwd_launch", _BWD_ARGTYPES)
-        args = (*ptrs, dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(), *shape,
-                DTYPES[q.dtype])
+        args += (DTYPES[q.dtype],)
     else:
-        p_lse = _build.require(lse, "lse", torch.float32, 3, dev)
-        if tuple(lse.shape) != (b, hq, sq):
-            raise ValueError(f"lse {tuple(lse.shape)} must be {(b, hq, sq)}")
         if any(p % 16 for p in ptrs):
             raise ValueError("q, k, v, out and dout must be 16-byte aligned for TMA")
-        stats = torch.empty(bwd_stats_floats(b, hq, sq), dtype=torch.float32, device=dev)
         fn = _build.entry(BACKWARD_WGMMA, "flash_attention_bwd_wgmma_launch",
                           _BWD_WGMMA_ARGTYPES)
-        args = (*ptrs, p_lse, dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
-                *shape)
     with _build.device_guard(dev):
         err = fn(*args, _build.stream_of(dev))
     _build.check(err, kernel)

@@ -16,15 +16,16 @@ dropped id), `embedding_bag` (sum, mean: the deterministic scatter of each
 bag's gradient over its ids, [-V, -1] wrapped to id + V; an id still
 outside [0, V) drops, as `jax.grad` of the reference's `table[idx]` drops
 it, though its forward clamps it), `attention` (the flash backward kernel
-that `flash_attention.route_bwd` picks; on the wgmma route the forward also
-writes each row's log-sum-exp, kept for the backward, but only when an
-input needs a gradient, so serving pays nothing for it) and `gather_rows` (`table[idx]`, whose
-backward is the deterministic scatter). The deterministic scatter sorts the
-flat ids stably, gathers the gradient rows in that order and sums them with
-`segment_reduce` (the kernel on the card), so every row's sum is taken in
-one fixed order: autograd's backward of plain indexing is an accumulating
-`index_put_`, whose order PyTorch does not fix. The min/max backwards of
-`segment_reduce` and `embedding_bag` are not ported and raise.
+that `flash_attention.route_bwd` picks; on the card the forward also writes
+each row's log-sum-exp, kept for the backward, but only when an input needs
+a gradient, so serving pays nothing for it) and `gather_rows`
+(`table[idx]`, whose backward is the deterministic scatter). The
+deterministic scatter sorts the flat ids stably, gathers the gradient rows
+in that order and sums them with `segment_reduce` (the kernel on the card),
+so every row's sum is taken in one fixed order: autograd's backward of
+plain indexing is an accumulating `index_put_`, whose order PyTorch does
+not fix. The min/max backwards of `segment_reduce` and `embedding_bag` are
+not ported and raise.
 """
 
 from __future__ import annotations
@@ -160,8 +161,7 @@ class _Attention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, grads):
         lse = None
-        if (grads and _route(q) == "cuda"
-                and _fa.route_bwd(q.dtype, q.shape[-1]) == _fa.BACKWARD_WGMMA):
+        if grads and _route(q) == "cuda":
             out, lse = _fa.flash_attention_cuda(q, k, v, causal, with_lse=True)
         else:
             out = _attention(q, k, v, causal)

@@ -1094,10 +1094,8 @@ def _exact_grads(q, k, v, dout, causal):
 
 
 def _forward_for_bwd(q, k, v, causal):
-    """(out, lse) of the flash forward, lse None off the wgmma route."""
-    if tfa.route_bwd(q.dtype, q.shape[-1]) == tfa.BACKWARD_WGMMA:
-        return tfa.flash_attention_cuda(q, k, v, causal, with_lse=True)
-    return tfa.flash_attention_cuda(q, k, v, causal), None
+    """(out, lse) of the flash forward that `route` picks: both keep lse."""
+    return tfa.flash_attention_cuda(q, k, v, causal, with_lse=True)
 
 
 def _rel(a, x):
@@ -1106,7 +1104,7 @@ def _rel(a, x):
 
 #: ragged across the 64-row tiles, Hq / Hkv 1 to 8, Sq < Skv and (last
 #: two) Sq > Skv, whose first rows see no key under `causal`; Dh 8 to 128,
-#: 12 taking the CUDA-core kernel in bf16 too
+#: 12 taking the TF32 kernel in bf16 too
 BWD_SHAPES = [(1, 2, 2, 32, 32, 16), (2, 4, 2, 70, 133, 12), (1, 8, 1, 100, 100, 64),
               (2, 4, 4, 1, 37, 128), (1, 4, 2, 129, 200, 128), (2, 2, 1, 64, 64, 64),
               (1, 16, 8, 257, 257, 64), (2, 2, 1, 33, 300, 8), (1, 4, 2, 200, 70, 96)]
@@ -1117,13 +1115,14 @@ BWD_SHAPES = [(1, 2, 2, 32, 32, 16), (2, 4, 2, 70, 133, 12), (1, 8, 1, 100, 100,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_bwd_matches_float64_autograd(cuda, b, hq, hkv, sq, skv, d, causal,
                                                       dtype):
-    """The backward kernel that `route_bwd` picks (the wgmma one given the
-    wgmma forward's lse) against float64 autograd of `attention_plain` on
-    the same inputs (float32: BWD_F32_ERR of the largest entry; bfloat16:
-    BWD_BF16_REL_ERR in relative norm), one launch a call under its own
-    counter, two calls bit-equal, a zero dq for a row that sees no key; the
-    wgmma kernel also within BWD_ROUNDED_REL_ERR of `attention_bwd_rounded`
-    (its relative norms are printed under pytest -s)."""
+    """The backward kernel that `route_bwd` picks, given its forward's lse,
+    against float64 autograd of `attention_plain` on the same inputs
+    (float32: BWD_F32_ERR of the largest entry; bfloat16: BWD_BF16_REL_ERR
+    in relative norm), one launch a call under its own counter, two calls
+    bit-equal, a zero dq for a row that sees no key; the wgmma kernel also
+    within BWD_ROUNDED_REL_ERR of `attention_bwd_rounded`, the TF32 kernel
+    in float32 within BWD_F32_ERR of `attention_bwd_3xtf32` (the readings
+    are printed under pytest -s)."""
     q, k, v, dout = (t.to(dtype) for t in _bwd_case(cuda, b, hq, hkv, sq, skv, d, sq * d + skv))
     kernel = tfa.route_bwd(dtype, d)
     out, lse = _forward_for_bwd(q, k, v, causal)
@@ -1152,13 +1151,19 @@ def test_flash_attention_bwd_matches_float64_autograd(cuda, b, hq, hkv, sq, skv,
         print(f"wgmma backward {(b, hq, hkv, sq, skv, d)} {causal=}: (dq, dk, dv) from "
               f"attention_bwd_rounded {rounded}")
         assert max(rounded) <= tfa.BWD_ROUNDED_REL_ERR
+    elif dtype == torch.float32:
+        model = [float((a.double() - m.double()).abs().max() / m.double().abs().max())
+                 for a, m in zip(got, tfa.attention_bwd_3xtf32(q, k, v, out, dout, causal))]
+        print(f"TF32 backward {(b, hq, hkv, sq, skv, d)} {causal=}: (dq, dk, dv) from "
+              f"attention_bwd_3xtf32 {model}")
+        assert max(model) <= tfa.BWD_F32_ERR
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_attention_op_backward_launches_the_kernel(cuda, dtype):
     """`ops.attention` on tensors that need a gradient: the forward and the
-    backward kernel of the dtype's routes launch once each (bfloat16: the
-    wgmma forward keeps its lse and the wgmma backward takes it), and the
+    backward kernel of the dtype's routes launch once each (the forward
+    keeps its lse and the backward takes it, on both routes), and the
     gradients equal the wrappers'; the output equals the inference call's."""
     q, k, v, dout = (t.to(dtype) for t in _bwd_case(cuda, 2, 8, 2, 96, 96, 64, 5))
     qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
@@ -1188,6 +1193,33 @@ def test_wgmma_forward_lse_matches_plain_and_keeps_the_output_bits(cuda, b, hq, 
     out = tfa.flash_attention_cuda(q, k, v, causal)
     again, lse = tfa.flash_attention_cuda(q, k, v, causal, with_lse=True)
     assert torch.equal(out.view(torch.int16), again.view(torch.int16))
+    want = tfa.attention_lse(q, k, causal)
+    assert lse.shape == (b, hq, sq) and lse.dtype == torch.float32
+    assert torch.equal(torch.isinf(lse), torch.isinf(want))
+    assert bool((lse[torch.isinf(lse)] > 0).all())
+    fin = torch.isfinite(want)
+    torch.testing.assert_close(lse[fin], want[fin], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d", [(1, 2, 2, 32, 32, 16), (2, 4, 2, 200, 70, 96),
+                                               (1, 8, 4, 1, 77, 128), (1, 4, 1, 257, 513, 64),
+                                               (2, 4, 2, 150, 170, 12)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tf32_forward_lse_matches_plain_and_keeps_the_output_bits(cuda, b, hq, hkv, sq, skv, d,
+                                                                  causal, dtype):
+    """The TF32 forward (float32, and bfloat16 with Dh 12) with `with_lse`:
+    the same output bits as without it, and each row's log-sum-exp within
+    1e-5 (absolute and relative) of `attention_lse`'s, +inf exactly where a
+    row sees nothing."""
+    if dtype == torch.bfloat16 and d % 8 == 0:
+        d = 12                              # the TF32 route's bfloat16 widths
+    q, k, v, _ = (t.to(dtype) for t in _bwd_case(cuda, b, hq, hkv, sq, skv, d, 4))
+    assert tfa.route(dtype, d) == tfa.TF32
+    out = tfa.flash_attention_cuda(q, k, v, causal)
+    again, lse = tfa.flash_attention_cuda(q, k, v, causal, with_lse=True)
+    assert torch.equal(_bits(out) if dtype == torch.float32 else out.view(torch.int16),
+                       _bits(again) if dtype == torch.float32 else again.view(torch.int16))
     want = tfa.attention_lse(q, k, causal)
     assert lse.shape == (b, hq, sq) and lse.dtype == torch.float32
     assert torch.equal(torch.isinf(lse), torch.isinf(want))
@@ -1286,7 +1318,7 @@ def test_reduced_moe_training_step_on_the_card_equals_the_cpu(cuda):
 def test_reduced_moe_bf16_gradients_take_the_wgmma_backward(cuda):
     """The reduced MoE config in bfloat16 (head dim 16): `loss_fn`'s
     gradients launch the wgmma forward twice a layer (remat) and the wgmma
-    backward once a layer, never the CUDA-core backward; two backward
+    backward once a layer, never the TF32 backward; two backward
     passes bit-equal, every leaf finite."""
     import dataclasses
 

@@ -1,9 +1,10 @@
-"""The plain versions behind the wgmma flash backward, on the CPU:
-`attention_bwd_rounded` (the kernel's rounding points) and `attention_lse`
-(the log-sum-exp the wgmma forward keeps for it), against float64 autograd
-of the port's plain attention, against `jax.grad` of the reference's
-`ref.attention_ref` and JAX's log-sum-exp of the reference's scores, on the
-same numpy-seeded inputs.
+"""The plain versions behind the two flash backwards, on the CPU:
+`attention_bwd_rounded` (the wgmma kernel's rounding points),
+`attention_bwd_3xtf32` (the TF32 kernel's: every product split as the
+kernel splits it) and `attention_lse` (the log-sum-exp both forwards keep
+for them), against float64 autograd of the port's plain attention, against
+`jax.grad` of the reference's `ref.attention_ref` and JAX's log-sum-exp of
+the reference's scores, on the same numpy-seeded inputs.
 
 Tolerances: bfloat16 gradients within BWD_BF16_REL_ERR (5e-3) in relative
 norm of float64 autograd and of JAX's float32 gradients on the same
@@ -11,7 +12,10 @@ bfloat16-valued inputs (P and dS round to bfloat16 before their products,
 the gradients round once, Delta reads the bfloat16 forward output); in
 float32, where nothing rounds, within rtol 1e-5 / atol 1e-6 of
 `attention_bwd_plain` (another sum order); the log-sum-exp within 1e-5
-(float32 scores summed in another order)."""
+(float32 scores summed in another order). `attention_bwd_3xtf32` on float32
+inputs within BWD_F32_ERR (2e-5 of the largest entry) of float64 autograd
+and of JAX's float32 gradients, and its single TF32 pass (`passes=1`)
+outside it: the control that shows the split is needed."""
 
 import jax
 import jax.numpy as jnp
@@ -34,6 +38,21 @@ def _case(b, hq, hkv, sq, skv, d, seed):
     arrs = (rng.standard_normal(s).astype(np.float32)
             for s in ((b, hq, sq, d), (b, hkv, skv, d), (b, hkv, skv, d), (b, hq, sq, d)))
     return [torch.from_numpy(a).to(torch.bfloat16).float().numpy() for a in arrs]
+
+
+def _case32(b, hq, hkv, sq, skv, d, seed):
+    """q, k, v, dout as float32 tensors (values that need the split)."""
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+            for s in ((b, hq, sq, d), (b, hkv, skv, d), (b, hkv, skv, d), (b, hq, sq, d))]
+
+
+def _max_err(got, exact) -> float:
+    """BWD_F32_ERR's reading: max |a - x| over max |x|, worst gradient."""
+    return max(float((torch.as_tensor(np.asarray(a, np.float64))
+                      - torch.as_tensor(np.asarray(x, np.float64))).abs().max()
+                     / torch.as_tensor(np.asarray(x, np.float64)).abs().max())
+               for a, x in zip(got, exact))
 
 
 def _bf16(*arrs):
@@ -143,3 +162,72 @@ def test_dropping_a_key_misses_the_rounded_tolerance(b, hq, hkv, sq, skv, d, cau
         g[:, :, 0] = 0
     moved = max(_rel(a.double(), r.double()) for a, r in zip(dropped, got))
     assert moved > 10 * tfa.BWD_ROUNDED_REL_ERR
+
+
+def _tf32_case(b, hq, hkv, sq, skv, d, causal, passes):
+    """`attention_bwd_3xtf32` on float32 inputs and float64 autograd of
+    `attention_plain`, each over the rows that see a key (autograd gives the
+    others NaN), and the model's dq on the rows that see none."""
+    q, k, v, dout = _case32(b, hq, hkv, sq, skv, d, 7 * sq + skv + d)
+    out = torch.nan_to_num(tfa.attention_plain(q, k, v, causal))   # NaN where no key is seen
+    got = tfa.attention_bwd_3xtf32(q, k, v, out, dout, causal, passes=passes)
+    lo = _seen(sq, skv, causal)
+    qq, kk, vv = (t.double().requires_grad_() for t in (q[:, :, lo:], k, v))
+    exact = torch.autograd.grad(tfa.attention_plain(qq, kk, vv, causal), (qq, kk, vv),
+                                dout[:, :, lo:].double())
+    return (got[0][:, :, lo:],) + got[1:], exact, got[0][:, :, :lo]
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d", SHAPES)
+@pytest.mark.parametrize("causal", [True, False])
+def test_3xtf32_backward_matches_float64_autograd(b, hq, hkv, sq, skv, d, causal):
+    """The TF32 kernel's plain version in float32: each gradient float32 and
+    within BWD_F32_ERR of float64 autograd; a row that sees no key gets a
+    zero dq."""
+    got, exact, unseen = _tf32_case(b, hq, hkv, sq, skv, d, causal, passes=3)
+    assert all(a.dtype == torch.float32 and a.shape == x.shape for a, x in zip(got, exact))
+    assert not unseen.any()
+    assert _max_err(got, exact) <= tfa.BWD_F32_ERR
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d", SHAPES)
+@pytest.mark.parametrize("causal", [True, False])
+def test_single_tf32_pass_misses_the_float32_tolerance(b, hq, hkv, sq, skv, d, causal):
+    """The control: with big*big alone (`passes=1`, one TF32 pass a product)
+    the same gradients miss BWD_F32_ERR (by 27x or more at these shapes), so
+    the tolerance sees a kernel that drops the split's small terms."""
+    got, exact, _ = _tf32_case(b, hq, hkv, sq, skv, d, causal, passes=1)
+    assert _max_err(got, exact) > tfa.BWD_F32_ERR
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d", [s for s in SHAPES if s[3] <= s[4]])
+@pytest.mark.parametrize("causal", [True, False])
+def test_3xtf32_backward_matches_jax_grad_of_the_reference(b, hq, hkv, sq, skv, d, causal):
+    """The same float32 numpy inputs through `jax.grad` of `ref.attention_ref`
+    and through `attention_bwd_3xtf32` (given `attention_plain`'s output):
+    within BWD_F32_ERR of the largest entry, each gradient."""
+    q, k, v, w = (t.numpy() for t in _case32(b, hq, hkv, sq, skv, d, 11 * sq + d))
+    want = jax.grad(lambda q_, k_, v_: jnp.sum(ref.attention_ref(q_, k_, v_, causal) * w),
+                    argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    tq, tk, tv, tw = map(torch.from_numpy, (q, k, v, w))
+    out = tfa.attention_plain(tq, tk, tv, causal)
+    got = tfa.attention_bwd_3xtf32(tq, tk, tv, out, tw, causal)
+    assert _max_err([a.numpy() for a in got], [np.asarray(x) for x in want]) <= tfa.BWD_F32_ERR
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d", SHAPES)
+def test_3xtf32_backward_on_bf16_is_the_plain_backward(b, hq, hkv, sq, skv, d):
+    """bfloat16 inputs (the TF32 kernel's route for D % 8 != 0) are exact in
+    TF32, so only P and dS are split: the model stays within BWD_BF16_REL_ERR
+    of float64 autograd, as `attention_bwd_plain` does."""
+    q, k, v, dout = _bf16(*_case(b, hq, hkv, sq, skv, d, 13 * skv + d))
+    out = _forward(q, k, v, True)
+    got = tfa.attention_bwd_3xtf32(q, k, v, out, dout, True)
+    assert all(g.dtype == torch.bfloat16 for g in got)
+    lo = _seen(sq, skv, True)
+    assert not got[0][:, :, :lo].any()
+    qq, kk, vv = (t.double().requires_grad_() for t in (q[:, :, lo:], k, v))
+    exact = torch.autograd.grad(tfa.attention_plain(qq, kk, vv, True), (qq, kk, vv),
+                                dout[:, :, lo:].double())
+    for a, x in zip((got[0][:, :, lo:],) + got[1:], exact):
+        assert _rel(a.double(), x) <= tfa.BWD_BF16_REL_ERR

@@ -42,8 +42,8 @@ def test_flash_route_is_a_function_of_dtype_and_head_dim(dtype, d, kernel):
     (torch.float32, 128, "flash_attention_bwd"), (torch.float32, 12, "flash_attention_bwd")])
 def test_flash_backward_route_follows_the_forward_route(dtype, d, kernel):
     """The backward takes wgmma exactly where the forward does (bfloat16
-    with D % 8 == 0), so the forward's log-sum-exp is there to keep; the
-    rest takes the CUDA-core kernel."""
+    with D % 8 == 0); the rest takes the TF32 mma.sync kernel, as the
+    forward's rest does."""
     assert tfa.route_bwd(dtype, d) == kernel
     assert (kernel == tfa.BACKWARD_WGMMA) == (tfa.route(dtype, d) == tfa.TENSOR_CORES)
 
@@ -52,31 +52,35 @@ def test_flash_backward_route_follows_the_forward_route(dtype, d, kernel):
                                           (8, 16, 1024, 1024), (1, 4, 1000, 1024)])
 def test_wgmma_backward_scratch_pads_each_head_to_128_rows(b, hq, sq, rows):
     """Two float32 planes (lse in the log2 domain, Delta) of B * Hq rows of
-    Sq rounded up to 128: the stride the C entry computes, a multiple of 4
-    floats as TMA needs, and room for a dQ block's 128 rows."""
+    Sq rounded up to 128, on both backward routes: the stride the C entries
+    compute, a multiple of 4 floats as TMA and 16-byte cp.async need, and
+    room for a dQ block's rows."""
     assert tfa.bwd_stats_floats(b, hq, sq) == 2 * b * hq * rows
 
 
-@pytest.mark.parametrize("dtype,d,lse", [(torch.bfloat16, 64, False), (torch.float32, 64, True),
-                                         (torch.bfloat16, 12, True)])
-def test_flash_backward_takes_lse_exactly_on_the_wgmma_route(dtype, d, lse):
-    """The wgmma backward needs the forward's log-sum-exp and the CUDA-core
-    one recomputes it: a call that gives the wrong one raises before any
-    tensor is checked or launched."""
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 64), (torch.float32, 64),
+                                     (torch.bfloat16, 12), (torch.float32, 128)])
+@pytest.mark.parametrize("lse_shape", [None, (1, 2, 3)])
+def test_every_flash_backward_takes_the_forwards_lse(dtype, d, lse_shape):
+    """Both backward routes read the forward's log-sum-exp (B, Hq, Sq): a
+    call without one, or with one of another shape, raises before any tensor
+    is checked or launched."""
     q = torch.ones(1, 2, 4, d, dtype=dtype)
     k = torch.ones(1, 1, 4, d, dtype=dtype)
-    given = torch.zeros(1, 2, 4) if lse else None
+    given = None if lse_shape is None else torch.zeros(lse_shape)
     with pytest.raises(ValueError, match="lse"):
         tfa.flash_attention_bwd_cuda(q, k, k, q, q, True, given)
 
 
-@pytest.mark.parametrize("dtype,d", [(torch.float32, 64), (torch.bfloat16, 12)])
-def test_only_the_wgmma_forward_keeps_lse(dtype, d):
-    """`with_lse` on a forward that takes the TF32 kernel raises: that route
-    has no log-sum-exp to give."""
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 64), (torch.bfloat16, 12),
+                                     (torch.bfloat16, 64)])
+def test_both_flash_forwards_keep_lse(dtype, d):
+    """`with_lse` is taken on both forward routes (the TF32 one as well as
+    wgmma): on CPU tensors the call gets past it to the tensor checks, which
+    refuse a CPU tensor."""
     q = torch.ones(1, 2, 4, d, dtype=dtype)
     k = torch.ones(1, 1, 4, d, dtype=dtype)
-    with pytest.raises(ValueError, match="with_lse"):
+    with pytest.raises(ValueError, match="CUDA tensors"):
         tfa.flash_attention_cuda(q, k, k, True, with_lse=True)
 
 
@@ -170,3 +174,25 @@ def test_wgmma_backward_takes_lse_and_scratch_pointers_in_order():
     names = _c_names("flash_attention_bwd_wgmma", "flash_attention_bwd_wgmma_launch")
     assert names[:10] == ["q", "k", "v", "out", "dout", "lse", "dq", "dk", "dv", "stats"]
     assert tfa._BWD_WGMMA_ARGTYPES[:10] == (ctypes.c_void_p,) * 10
+
+
+def test_tf32_forward_takes_lse_after_the_output():
+    """The TF32 forward's optional log-sum-exp pointer sits after `out`, in
+    the wgmma entry's place, and ctypes passes a pointer there (None for no
+    lse); the split planes' scratch and its size follow."""
+    names = _c_names("flash_attention", "flash_attention_launch")
+    assert names[:7] == ["q", "k", "v", "out", "lse", "scratch", "scratch_floats"]
+    assert tfa._ARGTYPES[4] is ctypes.c_void_p
+    assert tfa._ARGTYPES[:5] == tfa._WGMMA_ARGTYPES[:5]
+
+
+def test_tf32_backward_takes_the_wgmma_backwards_pointers_in_order():
+    """q, k, v, out, dout, lse, dq, dk, dv, stats: ten pointers in both
+    backward entries, then the same shape arguments; the TF32 entry adds the
+    dtype before the stream."""
+    names = _c_names("flash_attention_bwd", "flash_attention_bwd_launch")
+    assert names[:10] == ["q", "k", "v", "out", "dout", "lse", "dq", "dk", "dv", "stats"]
+    assert names[10:] == _c_names("flash_attention_bwd_wgmma",
+                                  "flash_attention_bwd_wgmma_launch")[10:-1] + ["dtype", "stream"]
+    assert tfa._BWD_ARGTYPES[:10] == (ctypes.c_void_p,) * 10
+    assert tfa._BWD_ARGTYPES[:-2] == tfa._BWD_WGMMA_ARGTYPES[:-1]
