@@ -1,5 +1,8 @@
-"""Distributed training support. This slice holds only the fault guards
-(`fault`); the mesh, sharding, collectives and pipelines are still to port."""
+"""Distributed support on the single-controller mesh (`repro_torch.mesh`):
+logical-axis sharding (`sharding`), gradient-compression all-reduces
+(`collectives`), GPipe pipelines with automatic and manual tensor
+parallelism (`pipeline`, `pipeline_tp`), and the training fault guards
+(`fault`)."""
 
 from repro_torch.distributed.fault import (
     Heartbeat,

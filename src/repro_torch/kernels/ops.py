@@ -12,20 +12,34 @@ Gradients. A kernel writes into a fresh tensor and carries no `grad_fn`, so
 the ops that training differentiates are `torch.autograd.Function`s, whose
 output has no `grad_fn` where no input requires a gradient (as in serving):
 `segment_reduce` (sum: the backward is a gather, `grad[seg_id]`, 0 for a
-dropped id), `embedding_bag` (sum, mean: the deterministic scatter of each
-bag's gradient over its ids, [-V, -1] wrapped to id + V; an id still
-outside [0, V) drops, as `jax.grad` of the reference's `table[idx]` drops
-it, though its forward clamps it), `attention` (the flash backward kernel
-that `flash_attention.route_bwd` picks; on the card the forward also writes
-each row's log-sum-exp, kept for the backward, but only when an input needs
-a gradient, so serving pays nothing for it) and `gather_rows`
-(`table[idx]`, whose backward is the deterministic scatter). The
-deterministic scatter sorts the flat ids stably, gathers the gradient rows
-in that order and sums them with `segment_reduce` (the kernel on the card),
-so every row's sum is taken in one fixed order: autograd's backward of
-plain indexing is an accumulating `index_put_`, whose order PyTorch does
-not fix. The min/max backwards of `segment_reduce` and `embedding_bag` are
-not ported and raise.
+dropped id; min and max: `jax.grad`'s tie rule, below), `embedding_bag`
+(sum, mean: the deterministic scatter of each bag's gradient over its ids,
+[-V, -1] wrapped to id + V; an id still outside [0, V) drops, as
+`jax.grad` of the reference's `table[idx]` drops it, though its forward
+clamps it; max: the tie rule, then the same scatter), `attention` (the flash
+backward kernel that `flash_attention.route_bwd` picks; on the card the
+forward also writes each row's log-sum-exp, kept for the backward, but only
+when an input needs a gradient, so serving pays nothing for it) and
+`gather_rows` (`table[idx]`, whose backward is the deterministic scatter).
+The deterministic scatter sorts the flat ids stably, gathers the gradient
+rows in that order and sums them with `segment_reduce` (the kernel on the
+card), so every row's sum is taken in one fixed order: autograd's backward
+of plain indexing is an accumulating `index_put_`, whose order PyTorch does
+not fix.
+
+The min/max backwards follow `jax.grad` of `repro/kernels/ref.py`: ties
+split the cotangent equally. A `segment_reduce` member equal to its
+segment's result gets `grad[seg] * (1 / count[seg])` (JAX's scatter-extremal
+rule, which multiplies by the reciprocal); an `embedding_bag` max member
+gets `(grad[b] / count[b]) * hit` (JAX's reduce-max rule, which divides),
+scattered to its row like the sum's. `count` is `segment_reduce`'s sum of
+the 0/1 hits, an exact sum of small integers, and nothing adds atomically,
+so a repeat is bit-equal. One case differs from JAX, by design: the
+kernel's fold starts from the TPU kernel's identity, -f32max/4 for max
+(+f32max/4 for min), so a member beyond it (-inf among them) never wins and
+gets no gradient on either route, where JAX's scatter-extremal rule counts
+its own initial value (-inf) as one more tie (two -inf members of one
+segment: g/3 each in JAX, 0 in the port).
 """
 
 from __future__ import annotations
@@ -104,7 +118,7 @@ def _attention_bwd(q, k, v, out, dout, causal, lse):
     return _fa.attention_bwd_plain(q, k, v, out, dout, causal)
 
 
-def _scatter_rows(rows: torch.Tensor, ids: torch.Tensor, num: int) -> torch.Tensor:
+def scatter_rows(rows: torch.Tensor, ids: torch.Tensor, num: int) -> torch.Tensor:
     """The deterministic scatter: (num, ...) float32 sums of `rows` (N, ...)
     by `ids` (N,), ids outside [0, num) dropped. The ids are sorted stably,
     the rows gathered in that order and summed by `segment_reduce`, so each
@@ -116,45 +130,73 @@ def _scatter_rows(rows: torch.Tensor, ids: torch.Tensor, num: int) -> torch.Tens
     return out.reshape((num,) + tuple(rows.shape[1:]))
 
 
+def _hit_within_identity(vals, combine):
+    """Members that can equal a min/max result: those on the identity's
+    side of it (the kernel's fold starts from the identity)."""
+    big = _ell.BIG
+    return vals >= -big if combine == "max" else vals <= big
+
+
 class _SegmentReduce(torch.autograd.Function):
     @staticmethod
     def forward(ctx, vals, seg_ids, num, combine, fill):
-        ctx.save_for_backward(seg_ids)
+        out = _segment_reduce(vals, seg_ids, num, combine, fill)
+        if combine == "sum":
+            ctx.save_for_backward(seg_ids)
+        else:
+            ctx.save_for_backward(seg_ids, vals, out)
         ctx.num, ctx.combine = num, combine
-        return _segment_reduce(vals, seg_ids, num, combine, fill)
+        return out
 
     @staticmethod
     def backward(ctx, grad):
-        if ctx.combine != "sum":
-            raise NotImplementedError(
-                f"the backward of segment_reduce {ctx.combine!r} is not ported (only sum)")
-        (seg_ids,) = ctx.saved_tensors
+        seg_ids = ctx.saved_tensors[0]
         num = ctx.num
         ok = (seg_ids >= 0) & (seg_ids < num)
+        at = torch.where(ok, seg_ids, num).long()
         pad = torch.cat([grad, grad.new_zeros((1,) + tuple(grad.shape[1:]))])
-        return pad[torch.where(ok, seg_ids, num).long()], None, None, None, None
+        if ctx.combine == "sum":
+            return pad[at], None, None, None, None
+        _, vals, out = ctx.saved_tensors
+        # a dropped id compares against NaN: no member of any segment
+        res = torch.cat([out, out.new_full((1,) + tuple(out.shape[1:]), float("nan"))])
+        hit = (vals == res[at]) & _hit_within_identity(vals, ctx.combine)
+        count = _segment_reduce(hit.to(vals.dtype), seg_ids, num, "sum", None)
+        count = torch.cat([count, count.new_ones((1,) + tuple(count.shape[1:]))])
+        coef = torch.where(hit, 1.0 / count[at], 0.0)
+        return pad[at] * coef, None, None, None, None
 
 
 class _EmbeddingBag(torch.autograd.Function):
     @staticmethod
     def forward(ctx, table, idx, mode):
-        ctx.save_for_backward(idx)
+        out = _embedding_bag(table, idx, mode)
+        if mode == "max":
+            ctx.save_for_backward(idx, table, out)
+        else:
+            ctx.save_for_backward(idx)
         ctx.mode, ctx.rows, ctx.dtype = mode, table.shape[0], table.dtype
-        return _embedding_bag(table, idx, mode)
+        return out
 
     @staticmethod
     def backward(ctx, grad):
-        if ctx.mode not in ("sum", "mean"):
-            raise NotImplementedError(
-                f"the backward of embedding_bag {ctx.mode!r} is not ported (sum, mean)")
-        (idx,) = ctx.saved_tensors
+        idx = ctx.saved_tensors[0]
         b, k = idx.shape
-        if ctx.mode == "mean":
-            grad = grad / k
-        rows = grad[:, None, :].expand(b, k, grad.shape[-1]).reshape(b * k, -1)
+        if ctx.mode == "max":
+            _, table, out = ctx.saved_tensors
+            got = table[_bag.wrap_indices(idx, ctx.rows).long()]        # (B, K, D)
+            hit = got == out[:, None, :]
+            bags = torch.arange(b, dtype=torch.int32, device=idx.device).repeat_interleave(k)
+            count = _segment_reduce(hit.reshape(b * k, -1).to(got.dtype).contiguous(),
+                                    bags, b, "sum", None)
+            rows = ((grad / count)[:, None, :] * hit).reshape(b * k, -1)
+        else:
+            if ctx.mode == "mean":
+                grad = grad / k
+            rows = grad[:, None, :].expand(b, k, grad.shape[-1]).reshape(b * k, -1)
         # wrapped once but not clamped: an id the forward clamped drops here
         ids = torch.where(idx < 0, idx + ctx.rows, idx)
-        return _scatter_rows(rows, ids, ctx.rows).to(ctx.dtype), None, None
+        return scatter_rows(rows, ids, ctx.rows).to(ctx.dtype), None, None
 
 
 class _Attention(torch.autograd.Function):
@@ -188,19 +230,21 @@ class _GatherRows(torch.autograd.Function):
         (idx,) = ctx.saved_tensors
         rows = grad.reshape((-1,) + ctx.shape[1:])
         ids = torch.where(idx < 0, idx + ctx.shape[0], idx)
-        return _scatter_rows(rows, ids, ctx.shape[0]).to(ctx.dtype), None
+        return scatter_rows(rows, ids, ctx.shape[0]).to(ctx.dtype), None
 
 
 def segment_reduce(vals, seg_ids, num_segments: int, combine: str = "sum",
                    fill: Optional[float] = None):
     """(num,) or (num, D) reduction over ascending `seg_ids`; empty segments
-    hold `fill` (default: the combine identity). Differentiable for sum."""
+    hold `fill` (default: the combine identity). Differentiable in `vals`
+    for sum, min and max (ties split the gradient, as `jax.grad` splits it)."""
     return _SegmentReduce.apply(vals, seg_ids, num_segments, combine, fill)
 
 
 def embedding_bag(table, idx, mode: str = "sum"):
     """(B, D) sum, mean or max over each bag of (B, K) rows of `table`.
-    Differentiable in `table` for sum and mean."""
+    Differentiable in `table` for every mode (max: ties split the gradient,
+    as `jax.grad` splits it)."""
     return _EmbeddingBag.apply(table, idx, mode)
 
 

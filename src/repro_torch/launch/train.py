@@ -4,8 +4,9 @@ Port of `repro.launch.train`: the config registry, the `TokenStream`,
 AdamW, the checkpoint manager (atomic, async, keep-N, auto-resume), the
 preemption guard, the heartbeat and the straggler watchdog, wired in the
 reference's order with its flags and defaults, plus `--device` (default
-cuda; the tests pass cpu). The reference's mesh is a later slice: the port
-trains on one device.
+cuda; the tests pass cpu). It trains on one device, as the reference's
+launcher does on its (1, 1) mesh; the pipelines over a mesh are `distributed.pipeline` and
+`distributed.pipeline_tp`.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch granite-moe-1b-a400m \\
       --preset tiny --steps 200 --ckpt-dir /tmp/ckpt
@@ -58,7 +59,9 @@ def tiny_config(base: tfm.TransformerConfig, d_model=256, n_layers=4,
 def preset_config(arch: str, preset: str) -> tfm.TransformerConfig:
     """The config `main` trains for `--arch` and `--preset`."""
     spec = configs.get(arch)
-    assert spec.family == "lm", "train.py drives LM archs; see examples/ for others"
+    assert spec.family == "lm", ("train.py drives LM archs; for DeepFM see "
+                                 "examples/torch/train_recsys.py, for the GNNs the "
+                                 "models' loss_fn")
     base = spec.make_config()
     if preset == "tiny":
         return tiny_config(base)

@@ -60,6 +60,16 @@ def init_params(cfg: DeepFMConfig, generator: torch.Generator, device="cuda") ->
     return p
 
 
+def param_logical_axes(cfg: DeepFMConfig) -> dict:
+    return {
+        "table": ("table_rows", None),
+        "linear": ("table_rows",),
+        "bias": (),
+        "mlp": [{"w": (None, "ff"), "b": ("ff",)} for _ in cfg.mlp],
+        "mlp_out": (None,),
+    }
+
+
 def _global_ids(ids: torch.Tensor, cfg: DeepFMConfig) -> torch.Tensor:
     """(B, n_fields) per-field ids -> int32 rows of the shared table."""
     offsets = torch.arange(cfg.n_fields, dtype=torch.int32, device=ids.device)

@@ -8,9 +8,11 @@ kernel on the card. Edges are (src, dst, w) arrays; sentinel ids (== n) drop
 into a scratch row that is cut off. The gathers of node rows onto edges are
 `kernels.ops.gather_rows`, whose backward is the deterministic scatter; the
 Combine's backward is a gather. `loss_fn` is the reference's masked mean
-negative log-likelihood. The reference's sharding hints, its per-layer
-remat of GatedGCN (which changes memory, not values) and the edge-sharded
-GatedGCN are the distributed slice's.
+negative log-likelihood. The reference's sharding hints have no
+counterpart (a single controller places tensors explicitly); its per-layer
+remat of GatedGCN changes memory, not values, and is left out of `forward`.
+`make_edgesharded_gatedgcn` is the reference's explicit edge-sharded
+GatedGCN on the single-controller mesh, with its per-layer remat.
 """
 
 from __future__ import annotations
@@ -19,9 +21,12 @@ import dataclasses
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch import mesh as M
 from repro_torch._device import resolve_device
 from repro_torch.core.acc import MAX_VOTE, SUM_AGG
+from repro_torch.distributed import sharding as sh
 from repro_torch.kernels import ops as kops
 
 
@@ -160,6 +165,87 @@ def forward(params, feats, src, dst, wgt, cfg: GNNConfig,
             (n,), dtype=torch.int32, device=feats.device)
         return SUM_AGG.segment(h, gi, n_graphs) @ params["head"]
     return h @ params["head"]
+
+
+# ---------------------------------------------------------------------------
+# explicit edge-sharded execution: edge state and intermediates are local to
+# a shard; only the (N, d) node aggregates cross shards (one sum each)
+# ---------------------------------------------------------------------------
+
+
+def edge_shards(mesh, n_edges: int, axes=(M.DATA_AXIS, M.MODEL_AXIS)) -> list:
+    """[(device, slice of the edge arrays)] a shard: the edge dim cut over
+    `axes` (row-major over them, as a partition over several mesh axes
+    cuts), each block on the first grid position that holds it."""
+    entry = tuple(a for a in (M.DATA_AXIS, M.MODEL_AXIS) if a in axes)
+    count = sh.parts(mesh, entry)
+    if n_edges % count:
+        raise ValueError(f"{n_edges} edges do not split over {count} shards; pad them")
+    size = n_edges // count
+    out = {}
+    for d in range(mesh.shape[M.DATA_AXIS]):
+        for s in range(mesh.shape[M.MODEL_AXIS]):
+            i = sh.block_index(mesh, entry, d, s)
+            out.setdefault(i, (mesh.device(d, s), slice(i * size, (i + 1) * size)))
+    return [out[i] for i in range(count)]
+
+
+def make_edgesharded_gatedgcn(cfg: GNNConfig, mesh, n: int,
+                              axes=(M.DATA_AXIS, M.MODEL_AXIS)):
+    """Returns loss_fn(params, feats, src_sh, dst_sh, wgt_sh, labels, mask):
+    the edge arrays (E,) are cut over `axes` (E a multiple of the shard
+    count: pad with edges to the sentinel n, weight 0), everything else is
+    replicated. Each shard gathers its edges' node rows (ids clamped to
+    n - 1), updates its edge state and aggregates its messages with
+    `Combiner.segment` into n + 1 rows (the `segment_reduce` kernel on the
+    card); the aggregates are summed over shards in shard order on the
+    first grid position's device and cut to n. Each layer runs under
+    `checkpoint` when a gradient is being taken. Differentiable: a
+    replicated parameter's gradient sums every shard's part."""
+    first = mesh.device(0, 0)
+
+    def layer(h, lp, shards, *es):
+        nums, dens, e_out = [], [], []
+        for (dev, src, dst), e in zip(shards, es):
+            hd = h.to(dev)
+            p = {k: v.to(dev) for k, v in lp.items()}
+            hi = kops.gather_rows(hd, dst.clamp_max(n - 1).long())
+            hj = kops.gather_rows(hd, src.clamp_max(n - 1).long())
+            e_new = hi @ p["A"] + hj @ p["B"] + e @ p["C"]
+            eta = torch.sigmoid(e_new)
+            nums.append(SUM_AGG.segment(eta * (hj @ p["V"]), dst, n + 1))
+            dens.append(SUM_AGG.segment(eta, dst, n + 1))
+            e_out.append(e + torch.relu(_ln(e_new, p["norm_e"])))
+        num = M.reduce_to(nums, "sum", first)[:n]
+        den = M.reduce_to(dens, "sum", first)[:n] + 1e-6
+        h_new = h @ lp["U"] + num / den
+        h2 = torch.relu(_ln(h_new, lp["norm_h"]))
+        if h.shape == h2.shape:
+            h2 = h + h2
+        return (h2, *e_out)
+
+    def loss_fn_sharded(params, feats, src_sh, dst_sh, wgt_sh, labels, mask):
+        cut = edge_shards(mesh, src_sh.shape[0], axes)
+        shards = [(dev, src_sh[sl].to(dev), dst_sh[sl].to(dev)) for dev, sl in cut]
+        es = []
+        for (dev, sl), (_, src, _) in zip(cut, shards):
+            w = (wgt_sh[sl].to(dev) if wgt_sh is not None
+                 else torch.ones(src.shape, device=dev))
+            es.append(w[:, None] @ params["edge_embed"].to(dev))
+        h = feats.to(first)
+        remat = torch.is_grad_enabled()
+        for lp in params["layers"]:
+            if remat:
+                h, *es = checkpoint(layer, h, lp, shards, *es, use_reentrant=False)
+            else:
+                h, *es = layer(h, lp, shards, *es)
+        logits = h @ params["head"].to(first)
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        nll = -torch.gather(logp, -1, labels.to(first)[:, None].long())[:, 0]
+        mask = mask.to(first)
+        return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+
+    return loss_fn_sharded
 
 
 def loss_fn(params, feats, src, dst, wgt, labels, cfg: GNNConfig,

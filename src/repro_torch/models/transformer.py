@@ -12,9 +12,12 @@ in a Python loop over the stack (the reference's `lax.scan`).
 reference takes XLA's attention there (`use_flash=False`), the same
 function. `decode_step` keeps the reference's cache branch (masked
 attention against the whole cache, in PyTorch ops, as the reference leaves
-it to XLA). A cache's `len` is a Python int, so no step reads the device
-for it. The sharding hints and the split-kv `attn_override` are the
-distributed slice's and are left out.
+it to XLA), or calls `attn_override` there (split-KV decode,
+`nn.decode_attn`). A cache's `len` is a Python int, so no step reads the
+device for it. `param_logical_axes` and `cache_logical_axes` name each
+dimension's logical axis for `distributed.sharding`; the reference's
+sharding hints inside the forward have no counterpart (a single controller
+places tensors explicitly).
 
 Training: `loss_fn` is the reference's (padded vocab lanes masked to -1e30,
 plus `aux_loss_weight` times the MoE aux loss), differentiated by autograd.
@@ -145,6 +148,39 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
     }
 
 
+def param_logical_axes(cfg: TransformerConfig) -> dict:
+    """Logical axes per parameter (`distributed.sharding`): TP ('heads',
+    'ff', 'vocab', 'experts' -> 'model') x ZeRO-3 ('fsdp' -> 'data') on the
+    d_model dim; the layer-stack dim stays replicated."""
+    la = {
+        "embed": ("vocab", "fsdp"),
+        "final_norm": (None,),
+        "lm_head": ("fsdp", "vocab"),
+        "layers": {
+            "attn_norm": (None, "fsdp"),
+            "mlp_norm": (None, "fsdp"),
+            "wq": (None, "fsdp", "heads"),
+            "wk": (None, "fsdp", None),   # kv proj replicated over model
+            "wv": (None, "fsdp", None),   # (n_kv < TP; group-major GQA)
+            "wo": (None, "heads", "fsdp"),
+        },
+    }
+    if cfg.moe:
+        la["layers"].update(
+            router=(None, "fsdp", None),
+            we1=(None, "experts", "fsdp", None),
+            we3=(None, "experts", "fsdp", None),
+            we2=(None, "experts", None, "fsdp"),
+        )
+    else:
+        la["layers"].update(
+            w1=(None, "fsdp", "ff"),
+            w3=(None, "fsdp", "ff"),
+            w2=(None, "ff", "fsdp"),
+        )
+    return la
+
+
 def layer_stack(params: dict) -> list[dict]:
     """Every layer's weights: views into the stacked (L, ...) tensors by one
     `unbind` of each (whose backward stacks the L gradients once, where L
@@ -158,12 +194,13 @@ def layer_stack(params: dict) -> list[dict]:
 # ---------------------------------------------------------------------------
 
 
-def _layer(cfg: TransformerConfig, x, lp, positions, kv_cache=None, cache_len=None):
+def _layer(cfg: TransformerConfig, x, lp, positions, kv_cache=None, cache_len=None,
+           attn_override=None):
     h = L.rms_norm(x, lp["attn_norm"])
     attn_out, new_kv = L.gqa_attention(
         h, lp, n_heads=cfg.n_heads, n_kv=cfg.n_kv, positions=positions,
         rope_theta=cfg.rope_theta, kv_cache=kv_cache, cache_len=cache_len,
-        use_flash=True,
+        use_flash=True, attn_override=attn_override,
     )
     x = x + attn_out
     h = L.rms_norm(x, lp["mlp_norm"])
@@ -223,22 +260,34 @@ def init_cache(cfg: TransformerConfig, batch: int, max_len: int, dtype=None,
             "v": torch.zeros(shape, dtype=dt, device=dev), "len": 0}
 
 
+def cache_logical_axes() -> dict:
+    return {
+        "k": (None, "batch", None, "kv_seq", None),
+        "v": (None, "batch", None, "kv_seq", None),
+        "len": (),
+    }
+
+
 def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
-                cfg: TransformerConfig):
+                cfg: TransformerConfig, attn_override=None):
     """One serving step: tokens (B, S_new) written at cache['len'], for
     prefill (S_new = prompt) and decode (S_new = 1). Returns (logits of the
-    last position (B, 1, V_pad), the new cache)."""
+    last position (B, 1, V_pad), the new cache). `attn_override` replaces
+    each layer's decode attention (`nn.layers.gqa_attention`)."""
     b, s = tokens.shape
     dev = tokens.device
     x = kops.gather_rows(params["embed"], tokens).to(DTYPES[cfg.dtype])
     pos0 = cache["len"]
     positions = pos0 + torch.arange(s, device=dev).expand(b, s)
-    nks, nvs = [], []
+    # each layer's updated cache goes into the new stack as it comes (a
+    # `torch.stack` at the end would hold every layer's copy and the stack)
+    new_k, new_v = torch.empty_like(cache["k"]), torch.empty_like(cache["v"])
     for i, lp in enumerate(layer_stack(params)):
         x, (nk, nv), _ = _layer(cfg, x, lp, positions,
-                                kv_cache=(cache["k"][i], cache["v"][i]), cache_len=pos0)
-        nks.append(nk)
-        nvs.append(nv)
+                                kv_cache=(cache["k"][i], cache["v"][i]), cache_len=pos0,
+                                attn_override=attn_override)
+        new_k[i], new_v[i] = nk, nv
+        del nk, nv
     x = L.rms_norm(x, params["final_norm"])
     logits = x[:, -1:] @ params["lm_head"]
-    return logits, {"k": torch.stack(nks), "v": torch.stack(nvs), "len": pos0 + s}
+    return logits, {"k": new_k, "v": new_v, "len": pos0 + s}

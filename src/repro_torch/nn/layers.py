@@ -10,9 +10,13 @@ reads kv head h % n_kv).
 `kernels.ops.attention`, which on the card is the hand-written flash kernel;
 `use_flash=False` takes the plain attention, as the reference takes
 `ref.attention_ref`. The projections are `torch.matmul`, as the reference
-leaves them to XLA. The reference's sharding constraints (`sh.constrain`,
-its `constrain=` flag) and the `attn_override` hook for split-kv decode
-under a mesh are left out: sharding is a later slice of the port.
+leaves them to XLA. `attn_override`, given, replaces the decode branch's
+masked attention: it is called as attn_override(q, k, v, valid_len) with
+the whole updated cache, as the reference calls it (split-KV decode,
+`nn.decode_attn.decode_attention_splitkv` with a mesh bound). The
+reference's sharding constraints (`sh.constrain`, its `constrain=` flag)
+have no counterpart: a single controller places tensors explicitly
+(`distributed.sharding.constrain` is the identity).
 """
 
 from __future__ import annotations
@@ -62,10 +66,11 @@ def _cache_update(cache: torch.Tensor, new: torch.Tensor, start: int) -> torch.T
 def gqa_attention(x: torch.Tensor, p: dict, *, n_heads: int, n_kv: int,
                   positions: torch.Tensor, rope_theta: float = 10000.0,
                   kv_cache: tuple | None = None, cache_len=None,
-                  causal: bool = True, use_flash: bool = False):
+                  causal: bool = True, use_flash: bool = False, attn_override=None):
     """x: (B, S, d). Returns (out, (k, v)), k and v laid out
     (B, n_kv, S_total, head_dim); with `kv_cache` = (ck, cv), the new keys and
-    values are written into a copy of the cache at `cache_len`."""
+    values are written into a copy of the cache at `cache_len`, and the
+    decode's attention is `attn_override(q, k, v, cache_len + S)` when given."""
     b, s, _ = x.shape
     dh = p["wq"].shape[-1] // n_heads
     q = (x @ p["wq"]).reshape(b, s, n_heads, dh)
@@ -82,6 +87,9 @@ def gqa_attention(x: torch.Tensor, p: dict, *, n_heads: int, n_kv: int,
         if s >= CHUNKED_FROM and k.shape[2] == s:
             # long prefill into an exactly-sized cache
             out = chunked_attention(q, k, v, causal=True)
+        elif attn_override is not None:
+            # e.g. split-KV decode over a mesh
+            out = attn_override(q, k, v, start + s)
         else:
             # decode: mask beyond the valid length, no causal within the step
             out = _decode_attention(q, k, v, start + s)

@@ -1,6 +1,7 @@
-"""The port stands alone: no file of `src/repro_torch/`, nor `chip_smoke.py`
-or `scripts/port_kernel_probe.py`, imports `jax` or the reference package
-`repro`, and the package imports with JAX made unimportable."""
+"""The port stands alone: no file of `src/repro_torch/`, nor `chip_smoke.py`,
+the port's scripts (`scripts/port_*.py`) or its examples (`examples/torch/`),
+imports `jax` or the reference package `repro`, and the package imports
+with JAX made unimportable."""
 
 import ast
 import subprocess
@@ -11,7 +12,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "scripts" / "port_kernel_probe.py"]
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "scripts").glob("port_*.py")) + sorted(
+    (ROOT / "examples" / "torch").glob("*.py"))
 
 
 def _forbidden(module: str) -> bool:
@@ -70,6 +72,16 @@ def test_package_imports_without_jax():
         "from repro_torch.checkpoint import manager\n"
         "from repro_torch.distributed import fault\n"
         "from repro_torch.graph import sampler\n"
+        "from repro_torch.distributed import sharding, collectives, pipeline, pipeline_tp\n"
+        "from repro_torch.nn import decode_attn\n"
+        "m4 = mesh.make_mesh(2, 2, devices=['cpu'] * 4)\n"
+        "with sharding.activate(m4):\n"
+        "    assert sharding.spec('kv_seq', 'heads') == (('data', 'model'), None)\n"
+        "red, _ = collectives.bf16_psum_ef([torch.ones(3)] * 2, [torch.zeros(3)] * 2)\n"
+        "assert red[0].tolist() == [2.0, 2.0, 2.0]\n"
+        "q, kv = torch.randn(2, 4, 1, 8), torch.randn(2, 2, 16, 8)\n"
+        "out = decode_attn.decode_attention_splitkv(q, kv, kv, 9, m4)\n"
+        "assert out.shape == (2, 4, 1, 8)\n"
         "assert len(configs.cells()) == 40\n"
         "cfg = train.tiny_config(configs.get('granite-moe-1b-a400m').make_config(),\n"
         "                        d_model=64, n_layers=1, vocab=64)\n"

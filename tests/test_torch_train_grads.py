@@ -137,21 +137,6 @@ def test_attention_backward_matches_jax(b, hq, hkv, sq, skv, d, causal):
         _op_close(a, g)
 
 
-@pytest.mark.parametrize("combine", ["min", "max"])
-def test_segment_min_max_backward_raises(combine):
-    v = torch.randn(5, requires_grad=True)
-    out = ops.segment_reduce(v, torch.tensor([0, 0, 1, 2, 2], dtype=torch.int32), 3, combine)
-    with pytest.raises(NotImplementedError, match=combine):
-        out.sum().backward()
-
-
-def test_embedding_bag_max_backward_raises():
-    t = torch.randn(10, 4, requires_grad=True)
-    out = ops.embedding_bag(t, torch.zeros((2, 3), dtype=torch.int32), "max")
-    with pytest.raises(NotImplementedError, match="max"):
-        out.sum().backward()
-
-
 def test_ops_without_gradients_skip_autograd():
     """Serving calls (no input needs a gradient, or no_grad) build no
     autograd graph: their outputs carry no grad_fn."""
