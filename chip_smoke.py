@@ -338,14 +338,41 @@ Phases (any failure exits non-zero; nothing is caught):
                  (seeded, len = seq - 1) on a (1, 4) mesh: each layer's
                  attention within 1e-2 (relative norm) of the unsharded
                  decode's, logits within LOGITS_REL_ERR, ms a step of both;
- 16. report    — the `kernels` JSON line (all eleven kernels, flash as two
+ 16. dryrun    — the dry-run (`repro_torch.launch.dryrun`) against the card,
+                 (b) run right after phase 3 on a clean card (after phase
+                 14 the caching allocator holds memory it cannot hand out),
+                 (c) and (a) at the end: (b) every cell whose meta run's
+                 one-device peak is at most 70 GiB and one-card roofline
+                 bound at most 2 s (LM cells screened first by their
+                 analytic compute) runs at its full registry shape on a
+                 (1, 1) mesh of the card, largest peak first, DRY_MUST
+                 always and the rest within a 150 s budget: the dry-run's
+                 argument bytes equal to the bytes of the storages drawn
+                 (on the card and, a host scalar, on the host), its
+                 argument bytes on the card as the allocator rounds them
+                 (`argument_alloc_bytes`, each tensor to 512 bytes) within
+                 1 % of torch.cuda.memory_allocated once the inputs are
+                 drawn, the meta run's peak within 10 % of
+                 max_memory_allocated over a step (where it is above 1
+                 GiB), the ms of a warm step
+                 beside the roofline bound, and each kernel call of a step
+                 held against its plain version on the step's own inputs, as
+                 phase 12 holds them; (c) one cell a family through
+                 `run_cell` on both production meshes, on the host, timed
+                 (the full sweep is the CLI's); (a) Eq. 1
+                 (`kernels.tuning.resident_blocks`, from the ptxas report's
+                 entry of the instance's mangled name, cudaFuncGetName's)
+                 equal to cudaOccupancyMaxActiveBlocksPerMultiprocessor for
+                 every kernel instance launched in this run, with the card's
+                 SM count and memory checked against `tuning.H100`;
+ 17. report    — the `kernels` JSON line (all eleven kernels, flash as two
                  forward routes and two backward routes; ell_combine, the batched
                  pull, segment_reduce and frontier_pack count phases 9, 10,
                  11 and 13's launches too, flash, segment_reduce and
-                 embedding_bag phases 12, 14 and 15's (with the launches of
+                 embedding_bag phases 12, 14, 15 and 16's (with the launches of
                  14 (d)'s subprocess), which each kernel's
-                 `model_path` lists by shape), the card line, then the last
-                 line {"ok": true, "device": {...}}.
+                 `model_path` and `dryrun_path` list by shape), the card
+                 line, then the last line {"ok": true, "device": {...}}.
 
 Kernel times are CUDA-event means over a run of calls. Kernels under 0.1 ms
 (frontier_pack, embedding_bag, the segment_reduce merges) and their library
@@ -381,10 +408,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet, at the 700 W limit
-F32_OPS_PER_S = 67e12          # float32 outside the tensor cores
-TF32_OPS_PER_S = 495e12        # dense TF32 on the tensor cores (H100 SXM data sheet)
-BF16_OPS_PER_S = 989e12        # dense bf16 on the tensor cores (H100 SXM data sheet)
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+from repro_torch.kernels.tuning import H100, kernel_resources  # noqa: E402
+
+# the H100 SXM's data-sheet rates, at the 700 W limit (kernels/tuning.py)
+HBM_BYTES_PER_S = H100.hbm_bw         # HBM3
+F32_OPS_PER_S = H100.f32_flops        # float32 outside the tensor cores
+TF32_OPS_PER_S = H100.tf32_flops      # dense TF32 on the tensor cores
+BF16_OPS_PER_S = H100.bf16_flops      # dense bf16 on the tensor cores
 #: embedding_bag's batches over DeepFM's table: serve_p99 and serve_bulk
 #: (src/repro/configs/registry.py:37-38), and 16,384 between them
 BAG_BATCHES = (512, 16_384, 262_144)
@@ -495,15 +526,6 @@ def dropped_key_control(fa, q, k, v, causal: bool, ref: torch.Tensor) -> float:
     lo = 1 if causal and q.shape[2] == k.shape[2] else 0
     dropped = fa.attention_rounded(q[:, :, lo:], k[:, :, 1:], v[:, :, 1:], causal)
     return rel_err(dropped, ref[:, :, lo:])
-
-
-def ptxas_instances(report: str) -> list[tuple[str, int, int]]:
-    """(mangled name, spill bytes, registers) of each kernel in nvcc's
-    `-Xptxas -v` report."""
-    found = re.findall(r"Function properties for (\S+)\n\s*\d+ bytes stack frame, "
-                       r"(\d+) bytes spill stores, (\d+) bytes spill loads\n.*?Used "
-                       r"(\d+) registers", report)
-    return [(name, int(st) + int(ld), int(regs)) for name, st, ld, regs in found]
 
 
 def bound_ms(nbytes: float, ops: float, peak: float = F32_OPS_PER_S) -> tuple[float, str]:
@@ -4950,6 +4972,293 @@ def distributed_phase(dev, ops, sr, bag, fa, push_ids) -> dict:
         f"{t[5] - t[4]:.1f} s")
     return {k: launches[k] for k in DIST_KERNELS}
 
+# ---------------------------------------------------------------------------
+# phase 16: the dry-run against the card
+# ---------------------------------------------------------------------------
+
+#: (b)'s limits: a cell runs on the card if its meta run's one-device peak
+#: and its one-card roofline bound are within these
+DRY_PEAK_MAX = 70 * 1024 ** 3
+DRY_BOUND_MAX_S = 2.0
+#: (b)'s budget for the cells beyond DRY_MUST, which always run
+DRY_BUDGET_S = 150.0
+DRY_MUST = (("deepfm", "train_batch"), ("deepfm", "serve_p99"), ("deepfm", "serve_bulk"),
+            ("deepfm", "retrieval_cand"), ("gcn-cora", "full_graph_sm"),
+            ("gin-tu", "full_graph_sm"), ("gatedgcn", "full_graph_sm"), ("gcn-cora", "molecule"),
+            ("gin-tu", "molecule"), ("gatedgcn", "molecule"), ("dimenet", "molecule"),
+            ("gcn-cora", "minibatch_lg"))
+#: (c): one cell a family, on both production meshes
+DRY_SWEEP = (("granite-moe-1b-a400m", "decode_32k"), ("gatedgcn", "full_graph_sm"),
+             ("dimenet", "molecule"), ("deepfm", "train_batch"))
+DRY_ARG_REL = 0.01
+DRY_PEAK_REL = 0.10
+DRY_PEAK_FLOOR = 1024 ** 3
+DRY_KEEP = 2
+#: (b) captures and holds the kernel calls of the cells whose peak is at
+#: most this (a kept call keeps its inputs alive; a larger cell's would not
+#: fit beside its step)
+DRY_HOLD_PEAK_MAX = 16 * 1024 ** 3
+
+
+def storage_bytes(tree) -> tuple[int, int]:
+    """Bytes of the storages of a tree of tensors, each storage once: those
+    on the card, and those on the host (a host scalar, as the sampled
+    step's seed)."""
+    seen = {}
+    stack = [tree]
+    while stack:
+        t = stack.pop()
+        if isinstance(t, torch.Tensor):
+            st = t.untyped_storage()
+            seen[(t.is_cuda, st.data_ptr())] = st.nbytes()
+        elif isinstance(t, dict):
+            stack.extend(t.values())
+        elif isinstance(t, (list, tuple)):
+            stack.extend(t)
+    on_card = sum(b for (cuda, _), b in seen.items() if cuda)
+    return on_card, sum(seen.values()) - on_card
+
+
+def dry_candidates(dev, mesh) -> list:
+    """The meta run of every cell that can qualify for (b), on `mesh`: the
+    LM cells whose analytic compute on one card is within DRY_BOUND_MAX_S
+    (the others cannot be) and every other cell."""
+    from repro_torch import configs
+    from repro_torch.launch import dryrun, steps
+
+    recs = []
+    for arch, shape in configs.cells():
+        spec = configs.get(arch)
+        if spec.family == "lm":
+            if spec.shapes[shape].get("skip_full_attn"):
+                continue
+            built = steps.build(spec, shape, mesh)
+            compute = built.analytic["flops_global"] / H100.bf16_flops
+            if compute > DRY_BOUND_MAX_S:
+                log(f"[16 dryrun] (b) {arch}/{shape}: analytic compute {compute:.3f} s on one "
+                    "card, above the bound's limit: not run")
+                continue
+        rec = dryrun.run_cell(arch, shape, False, mesh=mesh)
+        if rec["status"] != "OK":
+            raise AssertionError(f"{arch}/{shape} on a (1, 1) mesh: {rec.get('error')}")
+        recs.append(rec)
+    return recs
+
+
+def dry_card_cell(dev, ops, mesh, rec, cap) -> tuple[dict, collections.Counter]:
+    """(b) for one cell: inputs drawn on the card, a warm-up step, a step
+    under the peak counter with its launches counted, a captured step for
+    the holds (with `cap`, a `Captured`), then the warm step timed."""
+    from repro_torch import configs
+    from repro_torch.launch import steps
+
+    arch, shape = rec["arch"], rec["shape"]
+    built = steps.build(configs.get(arch), shape, mesh)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    inputs = built.make_inputs(dev, seed=16)
+    torch.cuda.synchronize()
+    got_args = torch.cuda.memory_allocated() - base
+    want_args = rec["memory"]["argument_bytes"]
+    want_alloc = rec["memory"]["argument_alloc_bytes"]
+    drawn, host = storage_bytes(inputs)
+    out = built.fn(*inputs)                       # warm-up: workspaces, first launches
+    del out
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    out = built.fn(*inputs)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    launches = collections.Counter({k: v for k, v in ops.launch_counts().items() if v})
+    del out
+    if cap is not None:
+        cap.run(f"dryrun {arch}/{shape}", lambda: built.fn(*inputs))
+    ms = cuda_ms(lambda: built.fn(*inputs), 3, 1)
+    want_peak = rec["memory"]["one_device_peak_bytes"]
+    bound_s = rec["one_device"]["bound_s"]
+    row = dict(cell=f"{arch}/{shape}", argument_bytes=want_args,
+               argument_alloc_bytes=want_alloc, drawn_storage_bytes=drawn, host_bytes=host,
+               allocated=got_args, peak_predicted=want_peak, peak_measured=peak, ms=ms,
+               bound_ms=bound_s * 1e3, launches=dict(launches))
+    log(f"[16 dryrun] (b) {arch}/{shape}: arguments predicted {want_args} B (the storages "
+        f"drawn: {drawn} B on the card, {host} B on the host), {want_alloc} B on the card as "
+        f"the allocator rounds, against memory_allocated {got_args} B "
+        f"({want_alloc / max(got_args, 1):.4f}); peak predicted {want_peak / 2**30:.3f} GiB "
+        f"against max_memory_allocated {peak / 2**30:.3f} GiB ({want_peak / max(peak, 1):.4f}); "
+        f"warm step {ms:.3f} ms against the roofline bound {bound_s * 1e3:.3f} ms; "
+        f"launches {dict(launches)}")
+    if drawn + host != want_args:
+        raise AssertionError(f"{arch}/{shape}: argument bytes {want_args} predicted, the "
+                             f"storages drawn hold {drawn} on the card and {host} on the host")
+    if abs(want_alloc - got_args) > DRY_ARG_REL * got_args:
+        raise AssertionError(f"{arch}/{shape}: argument bytes {want_alloc} predicted as the "
+                             f"allocator rounds, {got_args} allocated")
+    if peak > DRY_PEAK_FLOOR and abs(want_peak - peak) > DRY_PEAK_REL * peak:
+        raise AssertionError(f"{arch}/{shape}: peak {want_peak} predicted, {peak} measured")
+    del inputs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row, launches
+
+
+def dry_hold(sr, bag, fa, cap: Captured, held: dict) -> None:
+    """Every kept call of a (b) step held by `hold_call`, the first of each
+    (kernel, cell, shapes) key timed by `time_call`; the rows go under
+    held[kernel], for report[kernel]['dryrun_path']."""
+    for key, calls in cap.calls.items():
+        name, where = key[:2]
+        worst = 0.0
+        for args in calls:
+            try:
+                worst = max(worst, hold_call(sr, bag, fa, name, args)[0])
+            except AssertionError as exc:
+                raise AssertionError(f"{name} in {where}, {key[2:]}: {exc}") from exc
+        row = time_call(sr, bag, fa, name, calls[0])
+        row.update(where=where, launches=cap.count[key], held=len(calls), max_abs_err=worst)
+        if name == "flash_attention":
+            name = fa.route(calls[0][0].dtype, calls[0][0].shape[3])
+        held.setdefault(name, []).append(row)
+        log(f"[16 dryrun] {name} in {where}, {row['shape']}: {row['launches']} launches, "
+            f"{row['held']} held against the plain version (max abs err {worst:.3g}); card "
+            f"{row['ms']:.4f} ms, bound {row['bound_ms']:.4f} by {row['bound_by']}, plain "
+            f"{row['plain_ms']:.4f}, library {row['library_ms']:.4f}")
+
+
+def dry_sweep(t_budget: float) -> float:
+    """(c): DRY_SWEEP's cells on both production meshes through `run_cell`,
+    on the host; returns the seconds taken."""
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    for arch, shape in DRY_SWEEP:
+        for multi in (False, True):
+            rec = dryrun.run_cell(arch, shape, multi)
+            if rec["status"] != "OK":
+                raise AssertionError(f"dry-run {arch}/{shape}: {rec['status']} {rec.get('error')}")
+            r, m = rec["roofline"], rec["memory"]
+            log(f"[16 dryrun] (c) {arch}/{shape} on {rec['mesh']}: {rec['run_s']} s; arguments "
+                f"{m['argument_bytes'] / 2**30:.4f} GiB a device, one-device peak "
+                f"{m['one_device_peak_bytes'] / 2**30:.3f} GiB; compute {r['compute_s']:.3g} s, "
+                f"memory {r['memory_s']:.3g} s, dominant {r['dominant']}, roofline_frac "
+                f"{r['roofline_frac']}")
+    took = time.perf_counter() - t0
+    log(f"[16 dryrun] (c) {len(DRY_SWEEP)} cells x 2 meshes in {took:.1f} s (budget "
+        f"{t_budget:.0f} s; the full sweep: python -m repro_torch.launch.dryrun)")
+    return took
+
+
+def dry_occupancy() -> None:
+    """(a): Eq. 1 against CUDA's occupancy for every instance launched."""
+    from repro_torch.kernels import _build, tuning
+
+    props = torch.cuda.get_device_properties(0)
+    log(f"[16 dryrun] (a) {card_line()}: {props.multi_processor_count} SMs, "
+        f"{props.total_memory} B ({props.total_memory / 2**30:.2f} GiB); tuning.H100: "
+        f"{H100.sm_count} SMs, {H100.hbm_bytes / 2**30:.0f} GiB")
+    if props.multi_processor_count != H100.sm_count:
+        raise AssertionError(f"{props.multi_processor_count} SMs, tuning.H100 says {H100.sm_count}")
+    if not 0.97 * H100.hbm_bytes <= props.total_memory <= H100.hbm_bytes:
+        raise AssertionError(f"{props.total_memory} B of memory, tuning.H100 says "
+                             f"{H100.hbm_bytes}")
+    torch.cuda.synchronize()
+    bad, count = [], 0
+    log("[16 dryrun] (a) kernel (an instance of each kind) | instances | registers | spill B | "
+        "static smem B | threads | dynamic smem B | resident blocks (Eq. 1 / CUDA) | "
+        "co-resident grid")
+    for source in _build.SOURCES:
+        kinds = collections.Counter()
+        first = {}
+        for r in tuning.eq1_rows(source):
+            count += 1
+            # Eq. 1 runs on ptxas's numbers; CUDA's registers and shared
+            # memory for the same instance must be those too
+            same = r["ptxas"] is not None and (
+                (r["ptxas_registers"], r["ptxas_static_smem"])
+                == (r["registers"], r["static_smem"]))
+            key = (r["registers"], r["spill_bytes"], r["static_smem"], r["threads"],
+                   r["dyn_smem"], r["eq1"], r["cuda_blocks"], r["grid"], r["cuda_error"])
+            kinds[key] += 1
+            first.setdefault(key, r["name"])
+            if r["cuda_error"] or not same or r["eq1"] != r["cuda_blocks"]:
+                bad.append((source, r["name"], r["ptxas"] is not None, r["eq1"],
+                            r["cuda_blocks"], r["cuda_error"]))
+        for key, k in sorted(kinds.items(), key=str):
+            regs, spill, smem, threads, dyn, eq1, cuda, grid, _ = key
+            log(f"[16 dryrun] (a) {source}: {first[key]} | {k} | {regs} | {spill} | {smem} | "
+                f"{threads} | {dyn} | {eq1} / {cuda} | {grid}")
+    log(f"[16 dryrun] (a) {count} launched instances, {len(bad)} where Eq. 1 and CUDA differ")
+    if bad:
+        raise AssertionError(f"Eq. 1 differs from CUDA's occupancy (source, name, in the "
+                             f"ptxas report, Eq. 1, CUDA, error): {bad[:8]}")
+
+
+def dryrun_cells(dev, ops, sr, bag, fa) -> tuple[collections.Counter, dict]:
+    """Phase 16 (b), run right after phase 3 on a clean card (after phase 14
+    the caching allocator holds memory it cannot hand out, and the largest
+    cells need 64 GiB): the dry-run's memory and bounds against the card.
+    Returns the launches of the counted steps and the held kernel rows."""
+    from repro_torch.launch import mesh as LM
+
+    torch.cuda.empty_cache()
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    launches, held = collections.Counter(), {}
+    try:
+        mesh = LM.make_local_mesh(1, 1, devices=[dev])
+        t0 = time.perf_counter()
+        recs = dry_candidates(dev, mesh)
+        keep = [r for r in recs if r["memory"]["one_device_peak_bytes"] <= DRY_PEAK_MAX
+                and r["one_device"]["bound_s"] <= DRY_BOUND_MAX_S]
+        for r in recs:
+            if r not in keep:
+                log(f"[16 dryrun] (b) {r['arch']}/{r['shape']}: peak "
+                    f"{r['memory']['one_device_peak_bytes'] / 2**30:.2f} GiB, bound "
+                    f"{r['one_device']['bound_s']:.3f} s: not run")
+        keep.sort(key=lambda r: -r["memory"]["one_device_peak_bytes"])
+        missing = set(DRY_MUST) - {(r["arch"], r["shape"]) for r in keep}
+        if missing:
+            raise AssertionError(f"cells that must run did not qualify: {sorted(missing)}")
+        log(f"[16 dryrun] (b) {len(keep)} of {len(recs)} cells qualify (meta runs "
+            f"{time.perf_counter() - t0:.1f} s)")
+        t0, rows = time.perf_counter(), []
+        for r in keep:
+            must = (r["arch"], r["shape"]) in DRY_MUST
+            if not must and time.perf_counter() - t0 > DRY_BUDGET_S:
+                log(f"[16 dryrun] (b) {r['arch']}/{r['shape']}: past the budget, not run")
+                continue
+            cap = (Captured(sr, bag, fa, keep=DRY_KEEP)
+                   if r["memory"]["one_device_peak_bytes"] <= DRY_HOLD_PEAK_MAX else None)
+            row, got = dry_card_cell(dev, ops, mesh, r, cap)
+            rows.append(row)
+            launches.update(got)
+            if cap is not None:
+                dry_hold(sr, bag, fa, cap, held)
+                del cap
+                gc.collect()
+                torch.cuda.empty_cache()
+        log(f"[16 dryrun] (b) {len(rows)} cells on the card in {time.perf_counter() - t0:.1f} s")
+        MEASURED["dryrun_cells"] = rows
+    finally:
+        torch.cuda.empty_cache()
+        torch.cuda.memory._set_allocator_settings("expandable_segments:False")
+    return launches, held
+
+
+def dryrun_end(report, held: dict) -> None:
+    """Phase 16 (c) and (a), at the end of the run: one cell a family on
+    the production meshes, then Eq. 1 against CUDA for every instance
+    launched; (b)'s held rows join the report."""
+    for name, rows in held.items():
+        report[name]["dryrun_path"] = rows
+        report[name]["max_abs_err"] = max([report[name]["max_abs_err"]]
+                                          + [r["max_abs_err"] for r in rows])
+    MEASURED["dryrun_sweep_s"] = dry_sweep(DRY_BUDGET_S)
+    dry_occupancy()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=22, help="RMAT scale of the main path")
@@ -4964,7 +5273,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.core import algorithms as A
     from repro_torch.core import engine as E
     from repro_torch.graph import generators as G
@@ -5038,7 +5346,7 @@ def main() -> int:
     # every instance: dkdv_kernel<DP, causal>, dq_kernel<DP, causal>, delta_kernel
     # (dkdv's count is at entry: setmaxnreg then gives its consumers 240)
     per = []
-    for name, spill, regs in ptxas_instances(_build.ptxas_report(bwd_src)):
+    for name, regs, spill, _ in kernel_resources(bwd_src):
         m = re.search(r"(dkdv_kernel|dq_kernel|delta_kernel)(?:ILi(\d+)ELb(\d)E)?", name)
         what = m.group(1) + (f"<{m.group(2)}, {'causal' if m.group(3) == '1' else 'full'}>"
                              if m.group(2) else "")
@@ -5055,7 +5363,7 @@ def main() -> int:
         raise AssertionError("the TF32 flash backward needs TF32 tensor-core instructions "
                              "and no float atomics")
     per, on_path, spilled = [], [], []
-    for name, spill, regs in ptxas_instances(_build.ptxas_report(tf32_bwd)):
+    for name, regs, spill, _ in kernel_resources(tf32_bwd):
         m = re.search(r"(dkdv_kernel|dq_kernel|prep_kernel)I(f|13__nv_bfloat16)"
                       r"(?:Li(\d+)ELb(\d)E)?", name)
         what = (f"{m.group(1)}<{'float' if m.group(2) == 'f' else 'bf16'}"
@@ -5085,10 +5393,11 @@ def main() -> int:
     for source, main in [(_build.KERNELS[fa.TF32], "flash_kernelIfLi128ELb1ELb1E"),
                          ("ell_spmm", "spmm_kernelIfLi4ELi16ELi1E"),
                          ("ell_spmm", "spmm_kernelIfLi2ELi16ELi3E")] + batched:
-        per = ptxas_instances(_build.ptxas_report(source))
-        regs = sorted({x[2] for x in per})
-        spill = sum(x[1] for x in per)
-        on_path = [f"{x[2]} registers, {x[1]} spill bytes" for x in per if main in x[0]]
+        per = kernel_resources(source)
+        regs = sorted({x.registers for x in per})
+        spill = sum(x.spill_bytes for x in per)
+        on_path = [f"{x.registers} registers, {x.spill_bytes} spill bytes" for x in per
+                   if main in x.name]
         log(f"[2 build] {source}: {len(per)} instances, registers {regs[:1] + regs[-1:]} "
             f"(least, most), spill bytes {spill}; main path's {main}: {on_path}")
 
@@ -5105,6 +5414,11 @@ def main() -> int:
     log(f"[3 kernels] sweeps passed; max abs err vs plain (float32) {err}")
     if args.quick:
         return 0
+
+    # -- phase 16 (b): the dry-run's cells on the card, here on a clean card -------
+    t0 = time.perf_counter()
+    dry_launches, dry_held = dryrun_cells(dev, ops, sr, bag, fa)
+    log(f"[16 dryrun] (b) phase {time.perf_counter() - t0:.1f} s")
 
     # -- phase 4: the main path ------------------------------------------------
     t0 = time.perf_counter()
@@ -5379,7 +5693,14 @@ def main() -> int:
         launches[name] += k
     log(f"[14 training] phase {time.perf_counter() - t0:.1f} s")
 
-    # -- phase 16: report ------------------------------------------------------
+    # -- phase 16 (c), (a): the dry-run's sweep, Eq. 1 against CUDA -----------------
+    t0 = time.perf_counter()
+    for name, k in dry_launches.items():
+        launches[name] += k
+    dryrun_end(report, dry_held)
+    log(f"[16 dryrun] (c), (a) phase {time.perf_counter() - t0:.1f} s")
+
+    # -- phase 17: report ------------------------------------------------------
     kernels = []
     for name in _build.KERNELS:
         if launches[name] <= 0:
@@ -5387,7 +5708,7 @@ def main() -> int:
         kernels.append(dict(name=name, route="cuda",
                             source=f"src/repro_torch/csrc/{_build.KERNELS[name]}.cu",
                             launches=launches[name], passed=True, **report[name]))
-    log(f"[16 report] total {time.perf_counter() - t_start:.1f} s, against the 1200 s "
+    log(f"[17 report] total {time.perf_counter() - t_start:.1f} s, against the 1200 s "
         "limit of the chip call")
     log(json.dumps({"kernels": kernels}))
     log(card_line())

@@ -143,8 +143,9 @@ import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
-from chip_smoke import (BAG_BATCHES, TF32_OPS_PER_S, bound_ms, card_line, cuda_ms,  # noqa: E402
-                        graph_ms, host_us)
+from chip_smoke import (BAG_BATCHES, bound_ms, card_line, cuda_ms, graph_ms,  # noqa: E402
+                        host_us)
+from repro_torch.kernels.tuning import H100, parse_ptxas  # noqa: E402
 
 #: the probe entry's C parameters: flash_attention_wgmma_launch's (lse
 #: after the output), with the kv-tile width and the ring depth before the
@@ -162,6 +163,10 @@ def log(msg: str) -> None:
 
 
 def import_port(root: Path):
+    # chip_smoke imported this checkout's package for its constants: drop
+    # it, so that the package under root is the one imported
+    for name in [m for m in sys.modules if m.split(".")[0] == "repro_torch"]:
+        del sys.modules[name]
     sys.path.insert(0, str(root / "src"))
     import repro_torch
     if Path(repro_torch.__file__).resolve().parents[2] != root.resolve():
@@ -183,11 +188,12 @@ def flash_tiles(dev) -> None:
         raise RuntimeError(f"the probe build failed:\n{(proc.stdout + proc.stderr)[-3000:]}")
     report = proc.stdout + proc.stderr
     # flash_wgmma<DP, BKV, STAGES, CAUSAL>, as the mangled name spells it
-    for dp, bkv, stages, causal, regs in re.findall(
-            r"Function properties for \S*flash_wgmmaILi(\d+)ELi(\d+)ELi(\d+)ELb(\d)E\S*"
-            r"[\s\S]*?Used (\d+) registers", report):
-        log(f"[tiles] ptxas: D panel {dp}, bkv={bkv} stages={stages} causal={causal}: "
-            f"{regs} registers")
+    for k in parse_ptxas(report):
+        m = re.search(r"flash_wgmmaILi(\d+)ELi(\d+)ELi(\d+)ELb(\d)E", k.name)
+        if m:
+            dp, bkv, stages, causal = m.groups()
+            log(f"[tiles] ptxas: D panel {dp}, bkv={bkv} stages={stages} causal={causal}: "
+                f"{k.registers} registers")
     fn = ctypes.CDLL(str(lib)).flash_attention_wgmma_probe
     fn.argtypes = list(PROBE_ARGTYPES)
     fn.restype = ctypes.c_int
@@ -427,7 +433,7 @@ def flash_bwd(dev, root: Path, parent) -> None:
                           20, 3, 3)
             pairs = b * hq * s * (s + 1) // 2          # two products, three TF32 passes
             bnd = bound_ms((2 * q.numel() + 2 * k.numel()) * 4, 3 * 4 * pairs * d,
-                           TF32_OPS_PER_S)
+                           H100.tf32_flops)
             line += (f"; bound {bnd[0]:.4f} ms by {bnd[1]}, float32 "
                      f"scaled_dot_product_attention (kv heads repeated) {lib:.4f} ms")
         log(line)
@@ -466,12 +472,11 @@ def bwd_variants(dev, fa, cases) -> None:
         report = proc.communicate(timeout=900)[0]
         if proc.returncode != 0:
             raise RuntimeError(f"the w={w} step={st} build failed:\n{report[-3000:]}")
-        for kind, spill, regs in re.findall(
-                r"Function properties for \S*(dkdv_kernel|dq_kernel)IfLi64ELb1E\S*\n"
-                r"\s*\d+ bytes stack frame, (\d+) bytes spill stores[\s\S]*?Used (\d+) "
-                r"registers", report):
-            log(f"[flashbwd] variant warps={w} step={st}: {kind}<float, 64, causal> {regs} "
-                f"registers, {spill} bytes spill stores")
+        for k in parse_ptxas(report):
+            m = re.search(r"(dkdv_kernel|dq_kernel)IfLi64ELb1E", k.name)
+            if m:
+                log(f"[flashbwd] variant warps={w} step={st}: {m.group(1)}<float, 64, causal> "
+                    f"{k.registers} registers, {k.spill_bytes} spill bytes (stores + loads)")
         fn = ctypes.CDLL(str(lib)).flash_attention_bwd_launch
         fn.argtypes, fn.restype = list(fa._BWD_ARGTYPES), ctypes.c_int
         fns[(w, st)] = fn
@@ -859,7 +864,7 @@ def bag_variants(dev, parent) -> None:
         report = proc.communicate(timeout=600)[0]
         if proc.returncode != 0:
             raise RuntimeError(f"variant {name} failed to build:\n{report[-3000:]}")
-        regs = re.findall(r"bag_kernelILi0ELi2ELi1E\S*\n.*\n.*Used (\d+) registers", report)
+        regs = [k.registers for k in parse_ptxas(report) if "bag_kernelILi0ELi2ELi1E" in k.name]
         log(f"[bagvar] {name}: sum, 8-byte loads, one load a row: registers {regs}")
         fn = ctypes.CDLL(str(lib)).embedding_bag_launch
         fn.argtypes = list(bag._ARGTYPES)
@@ -931,7 +936,7 @@ def tiers(dev) -> None:
         report = proc.communicate(timeout=600)[0]
         if proc.returncode != 0:
             raise RuntimeError(f"variant {key} failed to build:\n{report[-3000:]}")
-        regs = re.findall(r"Used (\d+) registers", report)
+        regs = [k.registers for k in parse_ptxas(report)]
         log(f"[tiers] thread limit {key[0]}, {key[1]} sub-tiles: registers {sorted(set(regs))}")
         fn = ctypes.CDLL(str(lib)).segment_reduce_launch
         fn.argtypes = list(sr._ARGTYPES)

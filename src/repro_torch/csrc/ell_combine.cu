@@ -57,6 +57,8 @@
 #include <cuda_runtime.h>
 #include <cfloat>
 
+#include "occupancy.cuh"
+
 namespace {
 
 constexpr float BIG = FLT_MAX / 4.0f;  // the ACC identity magnitude f32max/4
@@ -224,23 +226,19 @@ unsigned grid_of(int R) {
 
 template <int C, int K, int G, int S>
 cudaError_t launch_scalar(const Args& a) {
-  if (a.dead)
-    ell_scalar<C, K, G, S, true><<<grid_of<G>(a.R), THREADS, 0, a.stream>>>(
-        a.nbr, a.wgt, a.dead, a.vals, a.out, a.R, a.W, a.n);
-  else
-    ell_scalar<C, K, G, S, false><<<grid_of<G>(a.R), THREADS, 0, a.stream>>>(
-        a.nbr, a.wgt, a.dead, a.vals, a.out, a.R, a.W, a.n);
+  auto kern = a.dead ? ell_scalar<C, K, G, S, true> : ell_scalar<C, K, G, S, false>;
+  repro::occ::note(kern, THREADS, 0);
+  kern<<<grid_of<G>(a.R), THREADS, 0, a.stream>>>(a.nbr, a.wgt, a.dead, a.vals, a.out, a.R,
+                                                   a.W, a.n);
   return cudaGetLastError();
 }
 
 template <int C, int K, int G, int V>
 cudaError_t launch_vector(const Args& a) {
-  if (a.dead)
-    ell_vector<C, K, G, V, true><<<grid_of<G>(a.R), THREADS, 0, a.stream>>>(
-        a.nbr, a.wgt, a.dead, a.vals, a.out, a.R, a.W, a.n);
-  else
-    ell_vector<C, K, G, V, false><<<grid_of<G>(a.R), THREADS, 0, a.stream>>>(
-        a.nbr, a.wgt, a.dead, a.vals, a.out, a.R, a.W, a.n);
+  auto kern = a.dead ? ell_vector<C, K, G, V, true> : ell_vector<C, K, G, V, false>;
+  repro::occ::note(kern, THREADS, 0);
+  kern<<<grid_of<G>(a.R), THREADS, 0, a.stream>>>(a.nbr, a.wgt, a.dead, a.vals, a.out, a.R,
+                                                   a.W, a.n);
   return cudaGetLastError();
 }
 
@@ -311,3 +309,5 @@ extern "C" int ell_combine_launch(const int* nbr, const float* wgt,
     default: return (int)cudaErrorInvalidValue;
   }
 }
+
+REPRO_OCCUPANCY(ell_combine)

@@ -68,6 +68,8 @@
 #include <cuda_runtime.h>
 #include <cfloat>
 
+#include "occupancy.cuh"
+
 namespace {
 
 constexpr float BIG = FLT_MAX / 4.0f;  // the ACC identity magnitude f32max/4
@@ -400,6 +402,7 @@ template <int C, int K, int V, int NS>
 cudaError_t launch_slots(const Args& a) {
   const int rows = THREADS / a.S;
   const unsigned grid = (unsigned)((a.R + rows - 1) / rows);
+  repro::occ::note(slot_lanes<C, K, V, NS>, THREADS, 0);
   slot_lanes<C, K, V, NS><<<grid, THREADS, 0, a.stream>>>(
       a.nbr, a.wgt, a.vals, a.out, a.R, a.W, a.n, a.Q, a.S);
   return cudaGetLastError();
@@ -412,6 +415,7 @@ cudaError_t launch_columns(const Args& a) {
   int rows = THREADS / T;                     // fewer where their staging would not fit
   if ((size_t)rows * per_row > MAX_STAGE) rows = (int)(MAX_STAGE / per_row);
   const unsigned grid = (unsigned)((a.R + rows - 1) / rows);
+  repro::occ::note(column_lanes<C, K, V, MAX_UP>, rows * T, rows * per_row);
   column_lanes<C, K, V, MAX_UP><<<grid, rows * T, rows * per_row, a.stream>>>(
       a.nbr, a.wgt, a.vals, a.out, a.R, a.W, a.n, a.Q, a.G, a.S, a.logp, a.vec_ids);
   return cudaGetLastError();
@@ -498,3 +502,5 @@ extern "C" int ell_combine_batched_launch(const int* nbr, const float* wgt,
     default: return (int)cudaErrorInvalidValue;
   }
 }
+
+REPRO_OCCUPANCY(ell_combine_batched)

@@ -45,6 +45,7 @@
 #include <cstdint>
 
 #include "lane_group.cuh"
+#include "occupancy.cuh"
 
 namespace {
 
@@ -243,9 +244,10 @@ cudaError_t by_lanes(const int* nbr, const float* wgt, const void* feats,
   const int nvec = D / V;
   const long long grid = ((long long)R + WARPS - 1) / WARPS;
   auto run = [&](auto l, auto c) {
-    spmm_kernel<T, V, decltype(l)::value, decltype(c)::value>
-        <<<(unsigned)grid, THREADS, 0, s>>>(nbr, wgt, (const T*)feats, (T*)out, R, W,
-                                            D, n, vec_ids);
+    auto kern = spmm_kernel<T, V, decltype(l)::value, decltype(c)::value>;
+    repro::occ::note(kern, THREADS, 0);
+    kern<<<(unsigned)grid, THREADS, 0, s>>>(nbr, wgt, (const T*)feats, (T*)out, R, W, D, n,
+                                            vec_ids);
     return cudaGetLastError();
   };
   if (nvec <= 4) return run(Int<4>{}, Int<1>{});
@@ -307,3 +309,5 @@ extern "C" int ell_spmm_launch(const int* nbr, const float* wgt,
     return (int)by_vec<float>(fvec, nbr, wgt, feats, out, R, W, D, n, vec_ids != 0, s);
   return (int)by_vec<__nv_bfloat16>(fvec, nbr, wgt, feats, out, R, W, D, n, vec_ids != 0, s);
 }
+
+REPRO_OCCUPANCY(ell_spmm)

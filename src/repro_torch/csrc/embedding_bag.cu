@@ -38,6 +38,8 @@
 
 #include <cuda_runtime.h>
 
+#include "occupancy.cuh"
+
 namespace {
 
 constexpr unsigned FULL = 0xffffffffu;
@@ -166,6 +168,7 @@ cudaError_t go(const float* table, const int* idx, float* out, int B, int K,
   const int per_warp = WARP / (groups * lanes);
   const long long warps = ((long long)B + per_warp - 1) / per_warp;
   const long long grid = (warps * WARP + THREADS - 1) / THREADS;
+  repro::occ::note(bag_kernel<M, VW, CH>, THREADS, 0);
   bag_kernel<M, VW, CH><<<(unsigned)grid, THREADS, 0, s>>>(
       table, idx, out, B, K, D, V, lanes, groups);
   return cudaGetLastError();
@@ -216,3 +219,5 @@ extern "C" int embedding_bag_launch(const float* table, const int* idx,
     default: return (int)cudaErrorInvalidValue;
   }
 }
+
+REPRO_OCCUPANCY(embedding_bag)

@@ -70,6 +70,7 @@
 
 #include "lane_group.cuh"
 #include "mma_tf32.cuh"
+#include "occupancy.cuh"
 
 namespace {
 
@@ -375,6 +376,7 @@ cudaError_t go(const void* q, const void* k, const void* v, void* o, float* lse,
   float* vpl = scratch + (long long)BH * Skv * 2 * DP;
   const long long items = (long long)BH * (Skv * (DP / 2) + (long long)(Skv + 1) / 2 * DP);
   const long long blocks = std::min<long long>((items + 255) / 256, 132 * 16);
+  repro::occ::note(split_kv<T, DP>, 256, 0);
   split_kv<T, DP><<<(unsigned)blocks, 256, 0, s>>>((const T*)k, (const T*)v,
                                                    (float4*)kpl, (float4*)vpl, BH, Skv, D);
   cudaError_t err = cudaGetLastError();
@@ -387,6 +389,7 @@ cudaError_t go(const void* q, const void* k, const void* v, void* o, float* lse,
                              (int)bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
+  repro::occ::note(kern, THREADS, bytes);
   kern<<<grid, THREADS, bytes, s>>>((const T*)q, kpl, vpl, (T*)o, lse, Hq, Hkv, Sq, Skv, D,
                                     scale * LOG2E, Skv - Sq);
   return cudaGetLastError();
@@ -441,3 +444,5 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     default: return (int)cudaErrorInvalidValue;
   }
 }
+
+REPRO_OCCUPANCY(flash_attention)

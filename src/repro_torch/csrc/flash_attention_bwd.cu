@@ -121,6 +121,7 @@
 
 #include "lane_group.cuh"
 #include "mma_tf32.cuh"
+#include "occupancy.cuh"
 
 #ifndef FLASH_BWD_WARPS
 #define FLASH_BWD_WARPS 4   // warps a block at D <= 64 (2 above)
@@ -781,12 +782,14 @@ cudaError_t go(const void* q, const void* k, const void* v, const void* dout, co
   cudaError_t err = raise_smem(dkdv, dkdv_smem<DP>());
   if (err != cudaSuccess) return err;
   constexpr int ROWS = Tiles<DP>::ROWS, THREADS = Tiles<DP>::THREADS;
+  repro::occ::note(dkdv, THREADS, dkdv_smem<DP>());
   dkdv<<<dim3(B * Hkv, (Skv + ROWS - 1) / ROWS), THREADS, dkdv_smem<DP>(), s>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)dout, stats, (T*)dk, (T*)dv, Hq, Hkv, Sq,
       Skv, SqP, D, scale, scale_log2, vec);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   auto dqk = dq_kernel<T, DP, CAUSAL>;
   if ((err = raise_smem(dqk, dq_smem<DP>())) != cudaSuccess) return err;
+  repro::occ::note(dqk, THREADS, dq_smem<DP>());
   dqk<<<dim3(B * Hq, (Sq + ROWS - 1) / ROWS), THREADS, dq_smem<DP>(), s>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)dout, stats, (T*)dq, Hq, Hkv, Sq, Skv,
       SqP, D, scale, scale_log2, vec);
@@ -813,6 +816,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* out,
   const long long rows = (long long)B * Hq * SqP;
   const long long blocks =
       std::min<long long>((rows + PREP_THREADS / 32 - 1) / (PREP_THREADS / 32), 132 * 16);
+  repro::occ::note(prep_kernel<T>, PREP_THREADS, 0);
   prep_kernel<T><<<(unsigned)blocks, PREP_THREADS, 0, s>>>((const T*)out, (const T*)dout, lse,
                                                            stats, rows, Sq, SqP, D);
   cudaError_t err = cudaGetLastError();
@@ -858,3 +862,5 @@ extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const vo
     default: return (int)cudaErrorInvalidValue;
   }
 }
+
+REPRO_OCCUPANCY(flash_attention_bwd)

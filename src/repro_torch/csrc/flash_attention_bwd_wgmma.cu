@@ -87,6 +87,7 @@
 
 #include <math.h>
 
+#include "occupancy.cuh"
 #include "wgmma_tma.cuh"
 
 namespace {
@@ -564,6 +565,7 @@ cudaError_t go(const Maps& m, const float* stats, void* dq, void* dk, void* dv, 
   cudaError_t err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          DkdvLayout<DP>::SMEM);
   if (err != cudaSuccess) return err;
+  repro::occ::note(dkdv, DKDV_THREADS, DkdvLayout<DP>::SMEM);
   dkdv<<<dim3(B * Hkv, (Skv + BLOCK_ROWS - 1) / BLOCK_ROWS), DKDV_THREADS, DkdvLayout<DP>::SMEM,
          s>>>(
       m.q, m.dout, m.k, m.v, m.stats, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, Hq, Hkv, Sq, Skv,
@@ -573,6 +575,7 @@ cudaError_t go(const Maps& m, const float* stats, void* dq, void* dk, void* dv, 
   err = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              DqLayout<DP>::SMEM);
   if (err != cudaSuccess) return err;
+  repro::occ::note(dqk, THREADS, DqLayout<DP>::SMEM);
   dqk<<<dim3(B * Hq, (Sq + BLOCK_ROWS - 1) / BLOCK_ROWS), THREADS, DqLayout<DP>::SMEM, s>>>(
       m.q, m.dout, m.k, m.v, stats, (__nv_bfloat16*)dq, Hq, Hkv, Sq, Skv, SqP, D, scale,
       scale_log2);
@@ -612,6 +615,7 @@ extern "C" int flash_attention_bwd_wgmma_launch(const void* q, const void* k, co
   cudaStream_t s = (cudaStream_t)stream;
   const long long blocks = (rows * 16 + DELTA_THREADS - 1) / DELTA_THREADS;
   if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  repro::occ::note(delta_kernel, DELTA_THREADS, 0);
   delta_kernel<<<(unsigned)blocks, DELTA_THREADS, 0, s>>>(
       (const __nv_bfloat16*)out, (const __nv_bfloat16*)dout, (const float*)lse, (float*)stats,
       rows, Sq, SqP, D);
@@ -624,3 +628,5 @@ extern "C" int flash_attention_bwd_wgmma_launch(const void* q, const void* k, co
   return causal ? (int)go<128, true>(m, st, dq, dk, dv, B, Hq, Hkv, Sq, Skv, SqP, D, scale, s)
                 : (int)go<128, false>(m, st, dq, dk, dv, B, Hq, Hkv, Sq, Skv, SqP, D, scale, s);
 }
+
+REPRO_OCCUPANCY(flash_attention_bwd_wgmma)

@@ -76,6 +76,7 @@
 
 #include <math.h>
 
+#include "occupancy.cuh"
 #include "wgmma_tma.cuh"
 
 namespace {
@@ -312,6 +313,7 @@ cudaError_t go(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& 
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid(B * Hq, (Sq + BQ - 1) / BQ);
+  repro::occ::note(kern, THREADS, bytes);
   kern<<<grid, THREADS, bytes, s>>>(tq, tk, tv, (__nv_bfloat16*)o, lse, Hq, Hkv, Sq, Skv, D,
                                     scale * LOG2E);
   return cudaGetLastError();
@@ -378,3 +380,5 @@ extern "C" int flash_attention_wgmma_probe(const void* q, const void* k, const v
   return (int)cudaErrorInvalidValue;
 }
 #endif
+
+REPRO_OCCUPANCY(flash_attention_wgmma)

@@ -45,6 +45,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "occupancy.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;
@@ -193,13 +195,17 @@ extern "C" int frontier_pack_launch(const unsigned char* mask, int n, int cap,
   cudaError_t err = cudaMemsetAsync(aux, 0, sizeof(unsigned long long) * (tiles + 2), s);
   if (err != cudaSuccess) return (int)err;
   const int aligned = ((uintptr_t)mask % 16) == 0;
+  repro::occ::note(pack_tiles, THREADS, 0);
   pack_tiles<<<tiles, THREADS, 0, s>>>(mask, n, cap, aligned,
                                        (unsigned long long*)aux, out_ids,
                                        out_count, out_ovf);
   if (cap > 0) {
     const int blocks = (cap + 255) / 256;
+    repro::occ::note(fill_tail, 256, 0);
     fill_tail<<<blocks < TAIL_BLOCKS ? blocks : TAIL_BLOCKS, 256, 0, s>>>(
         (const unsigned long long*)aux, cap, n, out_ids);
   }
   return (int)cudaGetLastError();
 }
+
+REPRO_OCCUPANCY(frontier_pack)

@@ -72,6 +72,8 @@
 #include <cfloat>
 #include <climits>
 
+#include "occupancy.cuh"
+
 namespace {
 
 // The thread-tier limit and a chunk's sub-tiles; scripts/port_kernel_probe.py
@@ -466,6 +468,7 @@ cudaError_t go(const float* vals, const int* ids, int E, int D, int num,
   if (total == 0) return cudaGetLastError();
   long long fill_blocks = (total / 4 + THREADS - 1) / THREADS;
   if (fill_blocks < 1) fill_blocks = 1;
+  repro::occ::note(seg_fill_range, THREADS, 0);
   seg_fill_range<<<(unsigned)(fill_blocks < FILL_GRID ? fill_blocks : FILL_GRID), THREADS,
                    0, s>>>(ids, E, num, fill, out, total, state);
   if (E == 0) return cudaGetLastError();
@@ -473,15 +476,19 @@ cudaError_t go(const float* vals, const int* ids, int E, int D, int num,
   const long long want = ((long long)E + rows - 1) / rows;
   if (D == 1) {
     const unsigned most = resident_grid(seg_tiles<K>);
+    repro::occ::note(seg_tiles<K>, THREADS, 0);
     seg_tiles<K><<<(unsigned)(want < most ? want : most), THREADS, 0, s>>>(
         vals, ids, out, long_list, state);
   } else {
     const unsigned most = resident_grid(seg_tiles_cols<K>);
+    repro::occ::note(seg_tiles_cols<K>, THREADS, 0);
     seg_tiles_cols<K><<<(unsigned)(want < most ? want : most), THREADS, 0, s>>>(
         vals, ids, D, out, long_list, state);
   }
-  if (E > LONG_SEG)
+  if (E > LONG_SEG) {
+    repro::occ::note(seg_block<K>, THREADS, 0);
     seg_block<K><<<LONG_GRID, THREADS, 0, s>>>(vals, ids, D, out, long_list, state);
+  }
   return cudaGetLastError();
 }
 
@@ -502,3 +509,5 @@ extern "C" int segment_reduce_launch(const float* vals, const int* ids, int E,
     default: return (int)cudaErrorInvalidValue;
   }
 }
+
+REPRO_OCCUPANCY(segment_reduce)

@@ -40,6 +40,7 @@ import dataclasses
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import _counting
 from repro_torch import mesh as M
 from repro_torch.kernels import ops as kops
 from repro_torch.models import transformer as tfm
@@ -134,6 +135,13 @@ def _head_loss_micro(cfg, y, head, fnorm, lbls):
     return -torch.gather(lp, -1, lbls[..., None].long())[..., 0].mean()
 
 
+def _send(x: torch.Tensor, dev) -> torch.Tensor:
+    """A stage-to-stage handoff: the reference's collective-permute over
+    the stage axis (counted for the dry-run, `launch.cost`)."""
+    _counting.collective("collective-permute", x.numel() * x.element_size())
+    return x.to(dev)
+
+
 def fill_drain(n_stages: int, n_micro: int, dt: torch.dtype, stage_devs: list,
                stage_leaves: list, stage_fwd, embed_fwd, embed_bwd, head_leaves: list,
                head_loss, stash_put, stash_get):
@@ -166,7 +174,7 @@ def fill_drain(n_stages: int, n_micro: int, dt: torch.dtype, stage_devs: list,
                 x_in = embed_fwd(mi) if s == 0 else act[s]
                 stash[s][mi] = stash_put(s, x_in)
                 if s < last:
-                    nxt[s + 1] = stage_fwd(s, x_in).to(stage_devs[s + 1])
+                    nxt[s + 1] = _send(stage_fwd(s, x_in), stage_devs[s + 1])
             act = nxt
 
     # ---------------- backward, reversed fill-drain ----------------------
@@ -202,7 +210,7 @@ def fill_drain(n_stages: int, n_micro: int, dt: torch.dtype, stage_devs: list,
             if s == 0:
                 embed_bwd(mi, dx)
             else:
-                nxt[s - 1] = dx.to(stage_devs[s - 1])
+                nxt[s - 1] = _send(dx, stage_devs[s - 1])
         dacc = nxt
     return loss_sum, g_stage, g_head
 

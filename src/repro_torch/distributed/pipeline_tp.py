@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import _counting
 from repro_torch import mesh as M
 from repro_torch.distributed import sharding as sh
 from repro_torch.distributed.pipeline import (  # noqa: F401
@@ -145,7 +146,14 @@ def pipeline_tp_loss_and_grads(params: dict, tokens: torch.Tensor, labels: torch
         # the gradient is taken with respect to the bf16 slices, as the
         # reference's vjp is: the input gradient comes back in bf16
         slices = [x.requires_grad_() for x in slices]
-        gather = lambda xs: torch.cat([x.to(devs[s][0]) for x in xs], dim=1).to(dt)
+
+        def gather(xs):
+            # the reference's all-gather of the seq slices over 'model'
+            if tp > 1:
+                _counting.collective("all-gather",
+                                     sum(x.numel() for x in xs) * xs[0].element_size())
+            return torch.cat([x.to(devs[s][0]) for x in xs], dim=1).to(dt)
+
         return gather(slices), slices, gather
 
     def embed_bwd(mi, dx):

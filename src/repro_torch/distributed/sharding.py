@@ -2,24 +2,26 @@
 
 Port of `repro.distributed.sharding`. Models name each tensor dimension by a
 *logical* axis ('batch', 'heads', 'ff', 'vocab', 'experts', 'kv_seq',
-'fsdp', ...); `spec` maps those names onto the axes of the active mesh, and
+'fsdp', ...); `spec(mesh, ...)` maps those names onto the mesh's axes, and
 names bound to mesh axes that the mesh lacks shard nothing. The port's mesh
 (`repro_torch.mesh.ServingMesh`) has the axes ('data', 'model'), as the
 reference's single-pod mesh has: 'pod' always collapses. `spec` reads the
-axis names from `mesh.shape`, so a stand-in with a 'pod' axis maps as the
-reference's multi-pod mesh does.
+axis names from `mesh.shape`, so a stand-in with a 'pod' axis (the
+dry-run's production mesh, `launch.mesh`) maps as the reference's
+multi-pod mesh does.
 
 Placement on a single controller is explicit: no compiler propagates
-layouts, so `constrain` is the identity. The counterpart of the reference's
-`named`/`tree_named` followed by `jax.device_put` is `shard`/`tree_shard`:
-a tensor (or a tree, by its tree of logical tuples) is cut into the block
-each grid position holds, on that position's device, and `unshard` puts
-the blocks back together.
+layouts, so the reference's active mesh (`activate`, `current_mesh`) and
+its `constrain` have no counterpart, and `spec` takes the mesh as an
+argument. The counterpart of the reference's `named`/`tree_named`
+followed by `jax.device_put` is `shard`/`tree_shard`: a tensor (or a tree,
+by its tree of logical tuples) is cut into the block each grid position
+holds, on that position's device, and `unshard` puts the blocks back
+together.
 """
 
 from __future__ import annotations
 
-import contextlib
 import math
 from typing import List, Optional, Sequence
 
@@ -45,29 +47,11 @@ RULES: dict[str, tuple[str, ...]] = {
     "queries": ("data",),
 }
 
-_ACTIVE: list = []
-
-
-@contextlib.contextmanager
-def activate(mesh):
-    """Make `mesh` the one `spec` maps onto, for the `with` block."""
-    _ACTIVE.append(mesh)
-    try:
-        yield mesh
-    finally:
-        _ACTIVE.pop()
-
-
-def current_mesh():
-    return _ACTIVE[-1] if _ACTIVE else None
-
-
-def spec(*logical: Optional[str]) -> tuple:
+def spec(mesh, *logical: Optional[str]) -> tuple:
     """The partition entries (None, a mesh axis, or a tuple of mesh axes) of
     a tensor whose dims carry these logical names (None = replicated dim),
-    on the active mesh. Unknown names shard nothing; a mesh axis serves at
-    most one dim."""
-    mesh = current_mesh()
+    on `mesh` (None: no mesh, every dim replicated). Unknown names shard
+    nothing; a mesh axis serves at most one dim."""
     axes = set(mesh.shape) if mesh is not None else set()
     entries: list = []
     used: set = set()
@@ -79,11 +63,6 @@ def spec(*logical: Optional[str]) -> tuple:
         used.update(cand)
         entries.append(None if not cand else cand[0] if len(cand) == 1 else cand)
     return tuple(entries)
-
-
-def constrain(x, *logical: Optional[str]):
-    """The identity: a single controller places every tensor explicitly."""
-    return x
 
 
 def _axes(entry) -> tuple:
@@ -121,8 +100,7 @@ def shard(mesh, x: torch.Tensor, *logical: Optional[str]) -> List[List[torch.Ten
     """`x` cut by its logical axes on `mesh`: grid[d][s] is the block that
     position (d, s) holds, on its device (a view of `x` where the device is
     x's own)."""
-    with activate(mesh):
-        entries = spec(*logical)
+    entries = spec(mesh, *logical)
     d_n, s_n = mesh.shape["data"], mesh.shape["model"]
     return [[_block(x, mesh, entries, d, s) for s in range(s_n)] for d in range(d_n)]
 
@@ -131,8 +109,7 @@ def unshard(mesh, grid: Sequence[Sequence[torch.Tensor]], *logical: Optional[str
             device=None) -> torch.Tensor:
     """The inverse of `shard`, on `device` (default: position (0, 0)'s):
     each block taken once, from the first position that holds it."""
-    with activate(mesh):
-        entries = spec(*logical)
+    entries = spec(mesh, *logical)
     dev = mesh.device(0, 0) if device is None else torch.device(device)
     split = [(dim, parts(mesh, e), e) for dim, e in enumerate(entries) if parts(mesh, e) > 1]
     blocks: dict = {}

@@ -140,6 +140,19 @@ def require(t, name: str, dtype, ndim: int, device) -> int:
     """Validate a tensor handed to a kernel; return its data pointer."""
     if device.type != "cuda":
         raise ValueError(f"{name}: CUDA kernels take CUDA tensors, got {device}")
+    return _check(t, name, dtype, ndim, device)
+
+
+def require_meta(t, name: str, dtype, ndim: int) -> None:
+    """The checks of `require` for a kernel's meta route, which takes meta
+    tensors only (a shape function: it allocates what the CUDA wrapper
+    allocates and launches nothing)."""
+    if t.device.type != "meta":
+        raise ValueError(f"{name}: a meta route takes meta tensors, got {t.device}")
+    _check(t, name, dtype, ndim, t.device)
+
+
+def _check(t, name: str, dtype, ndim: int, device) -> int:
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:

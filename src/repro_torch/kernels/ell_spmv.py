@@ -50,6 +50,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch import _counting
 from repro_torch.kernels import _build
 
 #: the ACC identity magnitude, float32(f32max / 4)
@@ -508,4 +509,73 @@ def _launch_batched(nbr: torch.Tensor, wgt: torch.Tensor, vals: torch.Tensor,
                  _build.stream_of(dev))
     _build.check(err, "ell_combine_batched")
     _build.LAUNCHES["ell_combine_batched"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# meta routes: the CUDA wrappers' checks and outputs on meta tensors, each
+# kernel's work counted as its bound counts it (every slot taken as real:
+# a meta tensor holds no ids to tell the padding apart)
+# ---------------------------------------------------------------------------
+
+
+def _require_slice_meta(nbr: torch.Tensor, wgt: torch.Tensor) -> tuple[int, int]:
+    _build.require_meta(nbr, "nbr", torch.int32, 2)
+    _build.require_meta(wgt, "wgt", torch.float32, 2)
+    r, w = nbr.shape
+    if wgt.shape != nbr.shape:
+        raise ValueError(f"wgt {tuple(wgt.shape)} != nbr {tuple(nbr.shape)}")
+    if not 1 <= w <= MAX_WIDTH:
+        raise ValueError(f"slice width {w} outside [1, {MAX_WIDTH}]")
+    return r, w
+
+
+def ell_combine_meta(nbr: torch.Tensor, wgt: torch.Tensor, vals: torch.Tensor,
+                     compute: str, combine: str,
+                     dead: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Meta route of `ell_combine_cuda`: (R,) float32; 2 operations a
+    slot, nbr, wgt (and dead), vals and the output moved once."""
+    if compute not in COMPUTE_OPS or combine not in COMBINE_OPS:
+        raise ValueError(f"unsupported ops {compute!r}/{combine!r}")
+    r, w = _require_slice_meta(nbr, wgt)
+    _build.require_meta(vals, "vals", torch.float32, 1)
+    if dead is not None:
+        if dead.shape != nbr.shape:
+            raise ValueError(f"dead {tuple(dead.shape)} != nbr {tuple(nbr.shape)}")
+        _build.require_meta(_dead_int8(dead), "dead", torch.int8, 2)
+    out = torch.empty((r,), dtype=torch.float32, device=vals.device)
+    slots = r * w
+    _counting.kernel("ell_combine" if dead is None else "ell_combine_overlay", 2 * slots,
+                     slots * (8 if dead is None else 9) + vals.shape[0] * 4 + r * 4)
+    return out
+
+
+def ell_spmm_meta(nbr: torch.Tensor, wgt: torch.Tensor, feats: torch.Tensor
+                  ) -> torch.Tensor:
+    """Meta route of `ell_spmm_cuda`: (R, D) in feats' dtype; 2 D
+    operations a slot, nbr, wgt, feats and the output moved once."""
+    if feats.dtype not in SPMM_DTYPES:
+        raise TypeError(f"feats has dtype {feats.dtype}, expected float32 or bfloat16")
+    r, w = _require_slice_meta(nbr, wgt)
+    _build.require_meta(feats, "feats", feats.dtype, 2)
+    npad, d = feats.shape
+    if not 1 <= d <= MAX_FEATURES:
+        raise ValueError(f"feature width {d} outside [1, {MAX_FEATURES}]")
+    out = torch.empty((r, d), dtype=feats.dtype, device=feats.device)
+    es = feats.element_size()
+    _counting.kernel("ell_spmm", 2 * r * w * d, r * w * 8 + npad * d * es + r * d * es)
+    return out
+
+
+def ell_combine_batched_meta(nbr: torch.Tensor, wgt: torch.Tensor, vals: torch.Tensor,
+                             compute: str, combine: str) -> torch.Tensor:
+    """Meta route of `ell_combine_batched_cuda`: (R, Q) float32; Q
+    operations a slot, nbr, wgt, vals and the output moved once."""
+    if compute not in COMPUTE_OPS or combine not in COMBINE_OPS:
+        raise ValueError(f"unsupported ops {compute!r}/{combine!r}")
+    r, w = _require_slice_meta(nbr, wgt)
+    _build.require_meta(vals, "vals", torch.float32, 2)
+    npad, q = vals.shape
+    out = torch.empty((r, q), dtype=torch.float32, device=vals.device)
+    _counting.kernel("ell_combine_batched", r * w * q, r * w * 8 + npad * q * 4 + r * q * 4)
     return out

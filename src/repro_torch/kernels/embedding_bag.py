@@ -25,6 +25,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import _counting
 from repro_torch.kernels import _build
 
 MODES = {"sum": 0, "mean": 1, "max": 2}
@@ -126,4 +127,26 @@ def embedding_bag_cuda(table: torch.Tensor, idx: torch.Tensor,
                  _build.stream_of(dev))
     _build.check(err, "embedding_bag")
     _build.LAUNCHES["embedding_bag"] += 1
+    return out
+
+
+def embedding_bag_meta(table: torch.Tensor, idx: torch.Tensor,
+                       mode: str = "sum") -> torch.Tensor:
+    """The meta route: `embedding_bag_cuda`'s checks and its (B, D) output
+    on meta tensors, the kernel's work counted as its bound counts it (B * K
+    * D operations; the ids, the rows read and the output moved once), with
+    every bag's rows taken as distinct, at most V (a meta tensor holds no
+    ids to count)."""
+    if mode not in MODES:
+        raise ValueError(f"unsupported mode {mode!r}")
+    _build.require_meta(table, "table", torch.float32, 2)
+    _build.require_meta(idx, "idx", torch.int32, 2)
+    v, d = table.shape
+    b, k = idx.shape
+    if not 1 <= d <= MAX_FEATURES:
+        raise ValueError(f"embedding width {d} outside [1, {MAX_FEATURES}]")
+    if k < 1 or v < 1:
+        raise ValueError(f"empty bags or table: K={k}, V={v}")
+    out = torch.empty((b, d), dtype=torch.float32, device=table.device)
+    _counting.kernel("embedding_bag", b * k * d, min(b * k, v) * d * 4 + b * k * 4 + b * d * 4)
     return out

@@ -59,6 +59,7 @@ import ctypes
 
 import torch
 
+from repro_torch import _counting
 from repro_torch.kernels import _build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -460,4 +461,82 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = fn(*args, _build.stream_of(dev))
     _build.check(err, kernel)
     _build.LAUNCHES[kernel] += 1
+    return dq, dk, dv
+
+
+def causal_pairs(sq: int, skv: int, causal: bool) -> int:
+    """(query, key) pairs a head attends: query i sees the kv positions
+    <= i + Skv - Sq when causal (all Skv otherwise), a + i of them for
+    a = Skv - Sq + 1 (none while that is <= 0; the last query sees all)."""
+    if not causal:
+        return sq * skv
+    a = skv - sq + 1
+    return _ramp(a + max(0, 1 - a), a + sq - 1)
+
+
+def _ramp(a: int, b: int) -> int:
+    """a + (a + 1) + ... + b (0 when b < a)."""
+    return (a + b) * (b - a + 1) // 2 if b >= a else 0
+
+
+def _require_meta_qkv(q, k, v):
+    b, hq, hkv, sq, skv, d = _shapes(q, k, v)
+    if q.dtype not in DTYPES:
+        raise TypeError(f"q has dtype {q.dtype}, expected float32 or bfloat16")
+    for t, name in ((q, "q"), (k, "k"), (v, "v")):
+        _build.require_meta(t, name, q.dtype, 4)
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d} outside [1, {MAX_HEAD_DIM}]")
+    if skv < 1:
+        raise ValueError("no kv positions")
+    return b, hq, hkv, sq, skv, d
+
+
+def flash_attention_meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         causal: bool = True, with_lse: bool = False):
+    """The meta route of `flash_attention_cuda`: its checks and allocations
+    (the output, the lse with `with_lse`, the TF32 route's split planes)
+    on meta tensors; the work counted under the route's kernel as its
+    bound counts it: 4 D operations a (query, key) pair (the TF32 route's
+    three products a float32 one are a rate, not more work), q, k, v and
+    the output (and lse) moved once."""
+    b, hq, hkv, sq, skv, d = _require_meta_qkv(q, k, v)
+    kernel = route(q.dtype, d)
+    dev = q.device
+    out = torch.empty_like(q)
+    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=dev) if with_lse else None
+    if kernel == TF32:
+        torch.empty(tf32_scratch_floats(b, hkv, skv, d), dtype=torch.float32, device=dev)
+    pairs = b * hq * causal_pairs(sq, skv, causal)
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size() + (b * hq * sq * 4 if with_lse
+                                                                    else 0)
+    _counting.kernel(kernel, 4 * pairs * d, nbytes)
+    return (out, lse) if with_lse else out
+
+
+def flash_attention_bwd_meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             out: torch.Tensor, dout: torch.Tensor, causal: bool = True,
+                             lse: torch.Tensor | None = None
+                             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The meta route of `flash_attention_bwd_cuda`: its checks and
+    allocations (dq, dk, dv and the row-statistics scratch) on meta
+    tensors; the work counted under `route_bwd`'s kernel as its bound
+    counts it: five products, 10 D operations a pair; q, out, dout, k, v
+    and lse read, dq, dk, dv written once."""
+    b, hq, hkv, sq, skv, d = _require_meta_qkv(q, k, v)
+    kernel = route_bwd(q.dtype, d)
+    if lse is None:
+        raise ValueError(f"{kernel} ({q.dtype}, D = {d}) takes the forward's lse")
+    if tuple(lse.shape) != (b, hq, sq):
+        raise ValueError(f"lse {tuple(lse.shape)} must be {(b, hq, sq)}")
+    _build.require_meta(lse, "lse", torch.float32, 3)
+    for t, name in ((out, "out"), (dout, "dout")):
+        _build.require_meta(t, name, q.dtype, 4)
+        if t.shape != q.shape:
+            raise ValueError(f"{name} {tuple(t.shape)} must be q's shape {tuple(q.shape)}")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    torch.empty(bwd_stats_floats(b, hq, sq), dtype=torch.float32, device=q.device)
+    pairs = b * hq * causal_pairs(sq, skv, causal)
+    nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() + b * hq * sq * 4
+    _counting.kernel(kernel, 10 * pairs * d, nbytes)
     return dq, dk, dv

@@ -18,6 +18,7 @@ import ctypes
 
 import torch
 
+from repro_torch import _counting
 from repro_torch.kernels import _build
 
 BLOCK = 1024
@@ -90,4 +91,22 @@ def frontier_pack_cuda(mask: torch.Tensor, cap: int):
                  overflow.data_ptr(), _build.stream_of(dev))
     _build.check(err, "frontier_pack")
     _build.LAUNCHES["frontier_pack"] += 1
+    return ids, count, overflow
+
+
+def frontier_pack_meta(mask: torch.Tensor, cap: int):
+    """The meta route: `frontier_pack_cuda`'s checks and allocations (the
+    status words, ids, count and overflow) on meta tensors, the kernel's
+    work counted as its bound counts it (2n operations; the mask read, the
+    ids and the two scalars written)."""
+    _build.require_meta(mask, "mask", torch.bool, 1)
+    dev = mask.device
+    n = mask.shape[0]
+    # the status words live to the end of the call, as the wrapper's do
+    aux = torch.empty((max(-(-n // TILE), 1) + 2,), dtype=torch.int64, device=dev)
+    ids = torch.empty((cap,), dtype=torch.int32, device=dev)
+    count = torch.empty((), dtype=torch.int32, device=dev)
+    overflow = torch.empty((), dtype=torch.bool, device=dev)
+    del aux
+    _counting.kernel("frontier_pack", 2 * n, n + cap * 4 + 5)
     return ids, count, overflow

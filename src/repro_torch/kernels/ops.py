@@ -3,10 +3,12 @@
 Port of `repro.kernels.ops`, the public kernel API: the three kernels on
 the solo engine's path, the deletion overlay, ELL SpMM, EmbeddingBag and
 flash attention; beside them the batched engine's Q-wide pull, which the
-reference leaves to XLA. The pick is by the device of the tensor given: a CPU tensor goes to the
-kernel's plain PyTorch version, a CUDA tensor to the CUDA kernel — or the call
-raises (nvcc missing, a refused launch). There is no fallback from one to the
-other.
+reference leaves to XLA. The pick is by the device of the tensor given
+(`_route`): a CPU tensor goes to the kernel's plain PyTorch version, a CUDA
+tensor to the CUDA kernel — or the call raises (nvcc missing, a refused
+launch) — and a meta tensor to the kernel's meta route, a shape function
+that launches nothing and counts the kernel's work for `launch.cost` (the
+dry-run's). There is no fallback from one to another.
 
 Gradients. A kernel writes into a fresh tensor and carries no `grad_fn`, so
 the ops that training differentiates are `torch.autograd.Function`s, whose
@@ -57,7 +59,11 @@ from repro_torch.kernels import segment_reduce as _sr
 
 
 def _route(t: torch.Tensor) -> str:
-    if t.device.type in ("cpu", "cuda"):
+    """The route a tensor's device takes: `cpu` the kernel's plain version,
+    `cuda` the CUDA wrapper, `meta` its shape function, which allocates
+    what the wrapper allocates and counts the kernel's work
+    (`launch.cost`)."""
+    if t.device.type in ("cpu", "cuda", "meta"):
         return t.device.type
     raise ValueError(f"no kernel route for device {t.device}")
 
@@ -67,54 +73,80 @@ def ell_combine(nbr, wgt, vals, compute: str, combine: str = "min", dead=None):
     `dead` (optional (R, W) bool/int8) is the streaming deletion overlay:
     flagged slots give the combine identity, bit-equal to the call without
     it on `ell_spmv.neutralize(nbr, dead, n)`."""
-    if _route(vals) == "cuda":
+    route = _route(vals)
+    if route == "cuda":
         return _ell.ell_combine_cuda(nbr, wgt, vals, compute, combine, dead)
+    if route == "meta":
+        return _ell.ell_combine_meta(nbr, wgt, vals, compute, combine, dead)
     return _ell.ell_combine_plain(nbr, wgt, vals, compute, combine, dead)
 
 
 def ell_combine_batched(nbr, wgt, vals, compute: str, combine: str = "min"):
     """(R, Q) partials of one ELL slice for vertex-major vals (n+1, Q): the
     batched engine's dense pull, the same halving tree over W per column."""
-    if _route(vals) == "cuda":
+    route = _route(vals)
+    if route == "cuda":
         return _ell.ell_combine_batched_cuda(nbr, wgt, vals, compute, combine)
+    if route == "meta":
+        return _ell.ell_combine_batched_meta(nbr, wgt, vals, compute, combine)
     return _ell.ell_combine_batched_plain(nbr, wgt, vals, compute, combine)
 
 
 def ell_spmm(nbr, wgt, feats):
     """(R, D) weighted neighbour sum over one ELL slice for (n+1, D) feats."""
-    if _route(feats) == "cuda":
+    route = _route(feats)
+    if route == "cuda":
         return _ell.ell_spmm_cuda(nbr, wgt, feats)
+    if route == "meta":
+        return _ell.ell_spmm_meta(nbr, wgt, feats)
     return _ell.ell_spmm_plain(nbr, wgt, feats)
 
 
 def frontier_pack(mask, cap: int):
     """(ids (cap,), count, overflow) of a dense (n,) bool mask, sentinel n."""
-    if _route(mask) == "cuda":
+    route = _route(mask)
+    if route == "cuda":
         return _fp.frontier_pack_cuda(mask, cap)
+    if route == "meta":
+        return _fp.frontier_pack_meta(mask, cap)
     return _fp.frontier_pack_plain(mask, cap)
 
 
 def _segment_reduce(vals, seg_ids, num_segments, combine, fill):
-    if _route(vals) == "cuda":
+    route = _route(vals)
+    if route == "cuda":
         return _sr.segment_reduce_cuda(vals, seg_ids, num_segments, combine, fill)
+    if route == "meta":
+        return _sr.segment_reduce_meta(vals, seg_ids, num_segments, combine, fill)
     return _sr.segment_reduce_plain(vals, seg_ids, num_segments, combine, fill)
 
 
 def _embedding_bag(table, idx, mode):
-    if _route(table) == "cuda":
+    route = _route(table)
+    if route == "cuda":
         return _bag.embedding_bag_cuda(table, idx, mode)
+    if route == "meta":
+        return _bag.embedding_bag_meta(table, idx, mode)
     return _bag.embedding_bag_plain(table, idx, mode)
 
 
-def _attention(q, k, v, causal):
-    if _route(q) == "cuda":
-        return _fa.flash_attention_cuda(q, k, v, causal)
+def _attention(q, k, v, causal, with_lse=False):
+    """The forward; `with_lse` (the kernels' routes only) also returns the
+    log-sum-exp the backward takes."""
+    route = _route(q)
+    if route == "cuda":
+        return _fa.flash_attention_cuda(q, k, v, causal, with_lse=with_lse)
+    if route == "meta":
+        return _fa.flash_attention_meta(q, k, v, causal, with_lse=with_lse)
     return _fa.attention_plain(q, k, v, causal)
 
 
 def _attention_bwd(q, k, v, out, dout, causal, lse):
-    if _route(q) == "cuda":
+    route = _route(q)
+    if route == "cuda":
         return _fa.flash_attention_bwd_cuda(q, k, v, out, dout, causal, lse)
+    if route == "meta":
+        return _fa.flash_attention_bwd_meta(q, k, v, out, dout, causal, lse)
     return _fa.attention_bwd_plain(q, k, v, out, dout, causal)
 
 
@@ -203,8 +235,8 @@ class _Attention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, grads):
         lse = None
-        if grads and _route(q) == "cuda":
-            out, lse = _fa.flash_attention_cuda(q, k, v, causal, with_lse=True)
+        if grads and _route(q) != "cpu":
+            out, lse = _attention(q, k, v, causal, with_lse=True)
         else:
             out = _attention(q, k, v, causal)
         ctx.save_for_backward(q, k, v, out, lse)

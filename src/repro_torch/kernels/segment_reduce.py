@@ -24,6 +24,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import _counting
 from repro_torch.kernels import _build
 from repro_torch.kernels.ell_spmv import _PAIR, COMBINE_OPS, halving_tree, identity
 
@@ -148,4 +149,30 @@ def segment_reduce_cuda(vals: torch.Tensor, seg_ids: torch.Tensor, num: int,
                  _build.stream_of(dev))
     _build.check(err, "segment_reduce")
     _build.LAUNCHES["segment_reduce"] += 1
+    return out
+
+
+def segment_reduce_meta(vals: torch.Tensor, seg_ids: torch.Tensor, num: int,
+                        combine: str = "sum", fill: Optional[float] = None
+                        ) -> torch.Tensor:
+    """The meta route: `segment_reduce_cuda`'s checks and allocations (the
+    output, the long-segment list and the state words) on meta tensors, and
+    the kernel's work counted as its bound counts it: E * D operations, the
+    ids, the values and the output moved once."""
+    if combine not in COMBINE_OPS:
+        raise ValueError(f"unsupported combine {combine!r}")
+    if vals.dim() not in (1, 2):
+        raise ValueError(f"vals must be (E,) or (E, D), got {tuple(vals.shape)}")
+    _build.require_meta(vals, "vals", torch.float32, vals.dim())
+    _build.require_meta(seg_ids, "seg_ids", torch.int32, 1)
+    e = vals.shape[0]
+    if seg_ids.shape[0] != e:
+        raise ValueError(f"seg_ids {seg_ids.shape[0]} != vals rows {e}")
+    d = vals.shape[1] if vals.dim() == 2 else 1
+    dev = vals.device
+    out = torch.empty((num,) + tuple(vals.shape[1:]), dtype=torch.float32, device=dev)
+    long_list = torch.empty((e // (LONG_SEG + 1) + 1,), dtype=torch.int32, device=dev)
+    state = torch.empty((3,), dtype=torch.int32, device=dev)
+    del long_list, state              # allocated after the output, as the wrapper's
+    _counting.kernel("segment_reduce", e * d, e * 4 + e * d * 4 + num * d * 4)
     return out

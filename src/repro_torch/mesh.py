@@ -26,6 +26,8 @@ from typing import List, Optional, Sequence
 
 import torch
 
+from repro_torch import _counting
+
 DATA_AXIS = "data"     # query shards
 MODEL_AXIS = "model"   # edge shards
 
@@ -87,8 +89,11 @@ _FOLD = {
 def reduce_to(parts: Sequence[torch.Tensor], op: str,
               device: Optional[torch.device] = None) -> torch.Tensor:
     """Fold the per-shard tensors in shard order on `device` (default:
-    shard 0's)."""
+    shard 0's). Counted as one all-reduce of one shard's operand when
+    there are several shards (`launch.cost`)."""
     fold = _FOLD[op]
+    if len(parts) > 1:      # the reference's psum/pmin/pmax, for the dry-run's count
+        _counting.collective("all-reduce", parts[0].numel() * parts[0].element_size())
     dev = parts[0].device if device is None else device
     acc = parts[0].to(dev)
     for p in parts[1:]:

@@ -16,7 +16,7 @@ the whole updated cache, as the reference calls it (split-KV decode,
 `nn.decode_attn.decode_attention_splitkv` with a mesh bound). The
 reference's sharding constraints (`sh.constrain`, its `constrain=` flag)
 have no counterpart: a single controller places tensors explicitly
-(`distributed.sharding.constrain` is the identity).
+(`distributed.sharding.shard`).
 """
 
 from __future__ import annotations

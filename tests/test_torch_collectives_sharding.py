@@ -163,10 +163,9 @@ def test_spec_matches_the_reference(axes):
     stand_in = types.SimpleNamespace(shape={a: 1 for a in axes})
     with jsh.activate(jmesh):
         want = [tuple(jsh.spec(*lg)) for lg in LOGICAL]
-    with tsh.activate(stand_in):
-        got = [tsh.spec(*lg) for lg in LOGICAL]
+    got = [tsh.spec(stand_in, *lg) for lg in LOGICAL]
     assert got == want
-    assert tsh.current_mesh() is None and tsh.spec("batch", "heads") == (None, None)
+    assert tsh.spec(None, "batch", "heads") == (None, None)
 
 
 def test_rules_and_tables_match_the_reference():
@@ -185,8 +184,7 @@ def test_shard_unshard_round_trip(shape):
     for logical in [("fsdp", None, "heads"), ("kv_seq", None, None), (None, None, None),
                     ("edges", None, None), ("batch", "vocab", None)]:
         grid = tsh.shard(mesh, x, *logical)
-        with tsh.activate(mesh):
-            entries = tsh.spec(*logical)
+        entries = tsh.spec(mesh, *logical)
         n = [tsh.parts(mesh, e) for e in entries]
         assert all(t.shape == tuple(s // k for s, k in zip(x.shape, n))
                    for row in grid for t in row)
@@ -206,6 +204,5 @@ def test_tree_shard_follows_the_table():
     d, f = params["layers"]["wq"].shape[1:]
     assert wq[1][0].shape == (cfg.n_layers, d // 2, f // 2)
     assert torch.equal(wq[1][0], params["layers"]["wq"][:, d // 2:, : f // 2])
-    with tsh.activate(mesh):
-        assert tsh.spec("vocab", "fsdp") == ("model", "data") and tsh.spec(None) == (None,)
-    assert tsh.constrain(params["embed"], "vocab", "fsdp") is params["embed"]
+    assert tsh.spec(mesh, "vocab", "fsdp") == ("model", "data")
+    assert tsh.spec(mesh, None) == (None,)

@@ -1343,3 +1343,83 @@ def test_reduced_moe_bf16_gradients_take_the_wgmma_backward(cuda):
     assert counts["flash_attention_bwd"] == 0
     assert all(torch.equal(a, b) for a, b in zip(*runs))
     assert all(bool(torch.isfinite(g).all()) for g in runs[0])
+
+
+# ---------------------------------------------------------------------------
+# the meta routes against the CUDA routes they stand for
+# ---------------------------------------------------------------------------
+
+
+def _route_case(name, dev):
+    """(CUDA wrapper, meta route, args on `dev`) at one shape per kernel."""
+    rng = np.random.default_rng(31)
+    n, r, w = 200, 64, 16
+    nbr = torch.from_numpy(rng.integers(0, n + 1, (r, w)).astype(np.int32)).to(dev)
+    wgt = torch.rand(r, w, device=dev)
+    q = torch.randn(2, 4, 100, 64, device=dev)
+    k, v = torch.randn(2, 2, 100, 64, device=dev), torch.randn(2, 2, 100, 64, device=dev)
+    ids = torch.sort(torch.randint(0, 50, (3000,), device=dev, dtype=torch.int32)).values
+    return {
+        "ell_combine": (tell.ell_combine_cuda, tell.ell_combine_meta,
+                        (nbr, wgt, torch.rand(n + 1, device=dev), "add_w", "min")),
+        "ell_combine_overlay": (tell.ell_combine_cuda, tell.ell_combine_meta,
+                                (nbr, wgt, torch.rand(n + 1, device=dev), "copy", "sum",
+                                 nbr > 100)),
+        "ell_combine_batched": (tell.ell_combine_batched_cuda, tell.ell_combine_batched_meta,
+                                (nbr, wgt, torch.rand(n + 1, 8, device=dev), "copy", "sum")),
+        "ell_spmm": (tell.ell_spmm_cuda, tell.ell_spmm_meta,
+                     (nbr, wgt, torch.rand(n + 1, 64, device=dev))),
+        "frontier_pack": (tfp.frontier_pack_cuda, tfp.frontier_pack_meta,
+                          (torch.rand(10000, device=dev) < 0.3, 4096)),
+        "segment_reduce": (tsr.segment_reduce_cuda, tsr.segment_reduce_meta,
+                           (torch.rand(3000, 8, device=dev), ids, 50, "sum", None)),
+        "embedding_bag": (tbag.embedding_bag_cuda, tbag.embedding_bag_meta,
+                          (torch.rand(500, 10, device=dev),
+                           torch.randint(0, 500, (64, 39), device=dev, dtype=torch.int32), "sum")),
+        "flash_attention": (tfa.flash_attention_cuda, tfa.flash_attention_meta,
+                            (q.bfloat16(), k.bfloat16(), v.bfloat16(), True)),
+        "flash_attention_f32": (lambda *a: tfa.flash_attention_cuda(*a, with_lse=True),
+                                lambda *a: tfa.flash_attention_meta(*a, with_lse=True),
+                                (q, k, v, True)),
+        "flash_attention_bwd": (tfa.flash_attention_bwd_cuda, tfa.flash_attention_bwd_meta,
+                                (q, k, v, q.clone(), q.clone(), True,
+                                 torch.zeros(2, 4, 100, device=dev))),
+        "flash_attention_bwd_wgmma": (tfa.flash_attention_bwd_cuda, tfa.flash_attention_bwd_meta,
+                                      (q.bfloat16(), k.bfloat16(), v.bfloat16(),
+                                       q.bfloat16(), q.bfloat16(), True,
+                                       torch.zeros(2, 4, 100, device=dev))),
+    }[name]
+
+
+@pytest.mark.parametrize("name", ["ell_combine", "ell_combine_overlay", "ell_combine_batched",
+                                  "ell_spmm", "frontier_pack", "segment_reduce",
+                                  "embedding_bag", "flash_attention", "flash_attention_f32",
+                                  "flash_attention_bwd", "flash_attention_bwd_wgmma"])
+def test_meta_route_allocates_what_the_cuda_route_allocates(cuda, name):
+    """The meta route's outputs have the CUDA route's shapes and dtypes
+    (flash's lse, the backward's dq/dk/dv, frontier_pack's count and
+    overflow among them), its peak bytes over its inputs are the CUDA
+    call's, and it counts the kernel the CUDA call launches."""
+    from repro_torch.launch import cost
+
+    cuda_fn, meta_fn, args = _route_case(name, cuda)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    ops.reset_launches()
+    got = cuda_fn(*args)
+    torch.cuda.synchronize()
+    cuda_peak = torch.cuda.max_memory_allocated() - before
+    launched = {k for k, c in ops.launch_counts().items() if c}
+    margs = tuple(a.to("meta") if isinstance(a, torch.Tensor) else a for a in args)
+    ins = cost.Counts()
+    with cost.counting(margs) as ins:
+        pass
+    with cost.counting(margs) as c:
+        want = meta_fn(*margs)
+    outs = got if isinstance(got, tuple) else (got,)
+    metas = want if isinstance(want, tuple) else (want,)
+    assert [(tuple(t.shape), t.dtype) for t in outs] == \
+        [(tuple(t.shape), t.dtype) for t in metas]
+    assert c.peak_bytes - ins.peak_bytes == cuda_peak
+    assert set(c.kernels) == launched

@@ -74,9 +74,11 @@ def test_package_imports_without_jax():
         "from repro_torch.graph import sampler\n"
         "from repro_torch.distributed import sharding, collectives, pipeline, pipeline_tp\n"
         "from repro_torch.nn import decode_attn\n"
+        "from repro_torch.kernels import tuning\n"
+        "from repro_torch.launch import analytic, cost, dryrun, mesh as lmesh, roofline, steps\n"
+        "assert dryrun.run_cell('deepfm', 'serve_p99', False)['status'] == 'OK'\n"
         "m4 = mesh.make_mesh(2, 2, devices=['cpu'] * 4)\n"
-        "with sharding.activate(m4):\n"
-        "    assert sharding.spec('kv_seq', 'heads') == (('data', 'model'), None)\n"
+        "assert sharding.spec(m4, 'kv_seq', 'heads') == (('data', 'model'), None)\n"
         "red, _ = collectives.bf16_psum_ef([torch.ones(3)] * 2, [torch.zeros(3)] * 2)\n"
         "assert red[0].tolist() == [2.0, 2.0, 2.0]\n"
         "q, kv = torch.randn(2, 4, 1, 8), torch.randn(2, 2, 16, 8)\n"
