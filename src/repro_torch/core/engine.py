@@ -20,7 +20,8 @@ and `fe_trace` stay on the device until the end. `'all'` dispatches push or
 pull from one loop, `'pushpull'` runs specialized inner loops per direction,
 `'none'` re-decides every step. The device-resident fused loop (the paper's
 persistent kernel with its global barrier, or CUDA-graph chunks with a
-device-side `done` flag) is future work.
+device-side `done` flag) is future work. Under a `torch.profiler` each
+push, pull and read is a `simdx.engine.*` range (`obs.region`).
 """
 
 from __future__ import annotations
@@ -350,7 +351,8 @@ def make_kernel_pull(program: ACCProgram) -> Callable:
 
 def _flags(st: EngineState):
     """The one host read per iteration: (done, mode)."""
-    done, mode = obs.host_flags(torch.stack([st.done.to(torch.int32), st.mode]))
+    with obs.region("simdx.engine.read"):
+        done, mode = obs.host_flags(torch.stack([st.done.to(torch.int32), st.mode]))
     return bool(done), mode
 
 
@@ -373,12 +375,14 @@ def run(program: ACCProgram, g: Graph, pack: EllPack, cfg: EngineConfig,
     st = init_state(program, g, cfg, delta=delta, **init_kw)
 
     def push(s):
-        return _policy(program, cfg, g.n_edges,
-                       _push_step(program, g.out, cfg, s, delta))
+        with obs.region("simdx.engine.push"):
+            return _policy(program, cfg, g.n_edges,
+                           _push_step(program, g.out, cfg, s, delta))
 
     def pull(s):
-        return _policy(program, cfg, g.n_edges,
-                       _pull_step(program, pack, cfg, s, g.out, pull_slice_fn))
+        with obs.region("simdx.engine.pull"):
+            return _policy(program, cfg, g.n_edges,
+                           _pull_step(program, pack, cfg, s, g.out, pull_slice_fn))
 
     done, mode = _flags(st)
     if cfg.fusion == "pushpull":

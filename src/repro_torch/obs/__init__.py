@@ -6,7 +6,9 @@ Five pieces, one enable switch:
   metrics.py  -- host-side registry: counters, gauges, fixed-bucket
                  histograms with interpolated p50/p95/p99 summaries.
   trace.py    -- request-lifecycle spans (submit -> admit -> harvest ->
-                 complete) exported as JSON lines.
+                 complete) exported as JSON lines; `region`, the engines'
+                 and the scheduler's `simdx.*` ranges on the timeline of a
+                 `torch.profiler` that someone started (none otherwise).
   recorder.py -- flight recorder: a bounded ring of host-side scheduler
                  events with post-mortem JSONL export; host-only, so it may
                  be armed without the telemetry switch.
@@ -40,7 +42,7 @@ from repro_torch.obs.metrics import (
     default_count_buckets,
     default_latency_buckets,
 )
-from repro_torch.obs.trace import MODE_NAMES, Span, TraceRecorder, iters_from_trace
+from repro_torch.obs.trace import MODE_NAMES, Span, TraceRecorder, iters_from_trace, region
 from repro_torch.obs import recorder as _recorder
 from repro_torch.obs.health import HealthMonitor, P2Quantile
 from repro_torch.obs.recorder import (
@@ -215,6 +217,7 @@ __all__ = [
     "TraceRecorder",
     "Span",
     "iters_from_trace",
+    "region",
     "MODE_NAMES",
     "device_fetch",
     "tele_dict",

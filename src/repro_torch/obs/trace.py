@@ -1,6 +1,10 @@
-"""Request-lifecycle tracing: one span per `GraphServer.submit`.
+"""Request-lifecycle tracing: one span per `GraphServer.submit`; and the
+program's ranges on the profiler's timeline (`region`).
 
-Port of `repro.obs.trace`, unchanged: spans are host records.
+Port of `repro.obs.trace`: spans are host records. Two additions: the
+recorder also reads its epoch on the wall clock that `torch.profiler`
+stamps with (`epoch_unix_ns`), so a lifecycle stamp lays over a device
+trace; and `region(name)` opens a `simdx.*` range while a profiler records.
 
 A span walks the request through the serving stack's stations (DESIGN.md
 §12):
@@ -40,13 +44,34 @@ immediately, no span state is kept, nothing is written.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import time
 from collections import deque
 from typing import Dict, List, Optional
 
+import torch
+
 MODE_NAMES = {0: "push", 1: "pull"}
+
+_OFF = contextlib.nullcontext()
+
+
+def region(name: str):
+    """A range named `name` (a `simdx.*` name) on the timeline of a
+    `torch.profiler` that is recording, else one shared no-op context.
+
+    Nothing turns it on but a profiler someone else started: off the
+    profiler a region costs one C call and a no-op `with`. The range is a
+    host op on the profiler's clock (`_RecordFunctionFast`, function
+    scope), so a device op belongs to the innermost region open when the
+    host call that launched it began. Unlike a user-scope
+    `record_function`, it draws no copy of itself on the device's
+    timeline, where a trace reader would count it as device time."""
+    if torch.autograd._profiler_enabled():
+        return torch._C._profiler._RecordFunctionFast(name)
+    return _OFF
 
 
 @dataclasses.dataclass
@@ -112,6 +137,10 @@ class TraceRecorder:
         self.enabled = enabled
         self.name = name
         self._epoch = time.monotonic()
+        #: the same instant on the wall clock in ns, the clock that
+        #: `torch.profiler` stamps its events with: a span time `t` lies at
+        #: `epoch_unix_ns + t * 1e9` on a profiler's timeline
+        self.epoch_unix_ns = time.time_ns()
         self._open: Dict[int, Span] = {}
         self.finished: deque = deque(maxlen=keep)
         self.emitted = 0
@@ -129,8 +158,14 @@ class TraceRecorder:
     def now(self) -> float:
         return time.monotonic() - self._epoch
 
+    def since_epoch(self, t: Optional[float]) -> float:
+        """A `time.monotonic()` stamp `t` as a span time (None: now)."""
+        return self.now() if t is None else t - self._epoch
+
     def begin(self, rid: int, algo: str, source: int, tenant: str,
-              graph_version: int) -> Optional[Span]:
+              graph_version: int, t: Optional[float] = None) -> Optional[Span]:
+        """Open a span; `t` is the submit's `time.monotonic()` stamp
+        where the caller took one (default: now)."""
         if not self.enabled:
             return None
         span = Span(
@@ -138,16 +173,16 @@ class TraceRecorder:
             source=int(source), tenant=tenant,
             graph_version=int(graph_version),
         )
-        span.events["submit"] = self.now()
+        span.events["submit"] = self.since_epoch(t)
         self._open[rid] = span
         return span
 
-    def mark(self, rid: int, event: str) -> None:
+    def mark(self, rid: int, event: str, t: Optional[float] = None) -> None:
         if not self.enabled:
             return
         span = self._open.get(rid)
         if span is not None:
-            span.events[event] = self.now()
+            span.events[event] = self.since_epoch(t)
 
     def complete(self, rid: int, *, from_cache: bool = False,
                  iterations: int = 0, iters: Optional[List[dict]] = None,
@@ -189,7 +224,7 @@ class TraceRecorder:
 
     def stats(self) -> dict:
         return {"emitted": self.emitted, "open": self.open_count(),
-                "kept": len(self.finished)}
+                "kept": len(self.finished), "epoch_unix_ns": self.epoch_unix_ns}
 
 
 # ---------------------------------------------------------------------------

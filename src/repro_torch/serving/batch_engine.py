@@ -36,6 +36,11 @@ branch fed by one packed read a pull of every slice's row-buffer overflow
 and the cache flag. `HOST_READS` counts these reads by kind. Telemetry
 reads nothing back: `tele` stays on the device. A serving pool reads one
 packed (done, it, gmode) tensor a step instead (`pool_flags`).
+
+Under a `torch.profiler` a step is two ranges (`obs.region`):
+`simdx.batch.combine`, the push or pull up to its shared tail, and
+`simdx.batch.apply`, the tail (`_apply_and_refilter` and `_advance`); each
+control-flow read is a `simdx.batch.read`.
 """
 
 from __future__ import annotations
@@ -190,6 +195,19 @@ def _push_step(program: ACCProgram, csr: CSR, cfg: EngineConfig, st: BatchState,
     for the whole batch, per-query masking on the (E, Q) update matrix, one
     segment combine. A streaming `delta`'s COO lanes are appended to the
     edge buffer unconditionally (sentinel lanes stay inert)."""
+    with obs.region("simdx.batch.combine"):
+        seg, tele = _push_combine(program, csr, cfg, st, delta)
+    with obs.region("simdx.batch.apply"):
+        m_new, nxt, count, fe, ovf, hot = _apply_and_refilter(program, cfg, csr, st, seg)
+        return _advance(st, m_new, nxt, count, fe, ovf, was_mode=PUSH, cfg=cfg, hot=hot,
+                        tele=tele)
+
+
+def _push_combine(program: ACCProgram, csr: CSR, cfg: EngineConfig, st: BatchState,
+                  delta: Optional[EdgeDelta]):
+    """The union push up to its tail: compaction, expansion, Compute and
+    the segment combine. Returns the combined (n+1, Q) plane and the
+    telemetry accumulator."""
     n = csr.n_nodes
     comb = program.combiner
     q = st.it.shape[0]
@@ -218,10 +236,7 @@ def _push_step(program: ACCProgram, csr: CSR, cfg: EngineConfig, st: BatchState,
         if delta is not None:
             scanned = scanned + (delta.src < n).sum(dtype=torch.int32)
         tele = _tele_add(tele, TELE_PUSH_EDGES, scanned)
-
-    m_new, nxt, count, fe, ovf, hot = _apply_and_refilter(program, cfg, csr, st, seg)
-    return _advance(st, m_new, nxt, count, fe, ovf, was_mode=PUSH, cfg=cfg, hot=hot,
-                    tele=tele)
+    return seg, tele
 
 
 def _partial_rows(program, comb, m, nbr, wgt, row_id, n: int) -> torch.Tensor:
@@ -283,6 +298,19 @@ def _pull_step(program: ACCProgram, pack: EllPack, cfg: EngineConfig, st: BatchS
     """Full-graph pull over the degree-bucketed ELL slices, all queries at
     once: each slice's (R, Q) partials, then a segment merge per slice. A
     streaming delta rides along as one more slice appended to the pack."""
+    with obs.region("simdx.batch.combine"):
+        seg, pseg_new, tele = _pull_combine(program, pack, cfg, st)
+    with obs.region("simdx.batch.apply"):
+        m_new, nxt, count, fe, ovf, hot = _apply_and_refilter(program, cfg, csr_for_deg,
+                                                              st, seg)
+        return _advance(st, m_new, nxt, count, fe, ovf, was_mode=PULL, cfg=cfg,
+                        pseg=pseg_new, hot=hot, tele=tele)
+
+
+def _pull_combine(program: ACCProgram, pack: EllPack, cfg: EngineConfig, st: BatchState):
+    """The pull up to its tail: every slice's partials and merge. Returns
+    the combined (n+1, Q) plane, the masked pull's new partial caches (None
+    without it) and the telemetry accumulator."""
     n = pack.n_nodes
     comb = program.combiner
     prim = st.m[program.primary]
@@ -296,7 +324,8 @@ def _pull_step(program: ACCProgram, pack: EllPack, cfg: EngineConfig, st: BatchS
         # the others use the union frontier
         hot_v = (st.hot if st.hot is not None else st.active).any(-1)
         sels = [_masked_rows(s, hot_v, cfg) for s in pack.slices]
-        flags = obs.host_flags(torch.stack([st.pull_dense] + [x[3] for x in sels]))
+        with obs.region("simdx.batch.read"):
+            flags = obs.host_flags(torch.stack([st.pull_dense] + [x[3] for x in sels]))
         HOST_READS["masked"] += 1
     pseg_new = []
     for si, s in enumerate(pack.slices):
@@ -315,10 +344,7 @@ def _pull_step(program: ACCProgram, pack: EllPack, cfg: EngineConfig, st: BatchS
         pseg_new.append(partial)
         seg = comb.pair(seg, comb.segment(partial, s.row_id, n + 1,
                                           sorted_ids=s.rows_ascending))
-
-    m_new, nxt, count, fe, ovf, hot = _apply_and_refilter(program, cfg, csr_for_deg, st, seg)
-    return _advance(st, m_new, nxt, count, fe, ovf, was_mode=PULL, cfg=cfg,
-                    pseg=tuple(pseg_new) if masked else None, hot=hot, tele=tele)
+    return seg, tuple(pseg_new) if masked else None, tele
 
 
 def _advance(st, m_new, nxt, count, union_fe, overflow, was_mode: int, cfg=None,
@@ -404,7 +430,8 @@ def make_batched_step(program: ACCProgram, g: Graph, pack: EllPack,
             new = _pull_step(program, pack, cfg, st, g.out)
         else:
             if gmode is None:
-                gmode = int(st.gmode)
+                with obs.region("simdx.batch.read"):
+                    gmode = int(st.gmode)
                 HOST_READS["gmode"] += 1
             if gmode == PULL:
                 new = _pull_step(program, pack, cfg, st, g.out)
@@ -512,8 +539,9 @@ def init_batch(program: ACCProgram, g, cfg: EngineConfig, sources, done=None,
 
 def _loop_flags(st: BatchState) -> tuple[bool, int]:
     """The one host read a iteration of `run_state`: (any lane live, gmode)."""
-    live, gmode = obs.host_flags(torch.stack([(~st.done).any().to(torch.int32),
-                                              st.gmode.to(torch.int32)]))
+    with obs.region("simdx.batch.read"):
+        live, gmode = obs.host_flags(torch.stack([(~st.done).any().to(torch.int32),
+                                                  st.gmode.to(torch.int32)]))
     HOST_READS["loop"] += 1
     return bool(live), gmode
 
@@ -522,8 +550,9 @@ def pool_flags(st: BatchState) -> tuple[list, list, int]:
     """The one host read a serving pool makes of a state: (done per lane,
     iterations per lane, gmode), packed into one transfer."""
     q = st.done.shape[0]
-    flat = obs.host_flags(torch.cat([st.done.to(torch.int32), st.it.to(torch.int32),
-                                     st.gmode.to(torch.int32).reshape(1)]))
+    with obs.region("simdx.batch.read"):
+        flat = obs.host_flags(torch.cat([st.done.to(torch.int32), st.it.to(torch.int32),
+                                         st.gmode.to(torch.int32).reshape(1)]))
     HOST_READS["pool"] += 1
     return [bool(x) for x in flat[:q]], flat[q:2 * q], flat[-1]
 

@@ -125,6 +125,9 @@ class Request:
     #: absolute deadline on the server's monotonic clock, or None — set by
     #: `submit(deadline_ms=...)` (DESIGN.md §13)
     deadline_t: Optional[float] = None
+    #: `time.monotonic()` at the request's latest enqueue (its submit, or
+    #: a preemption's re-queue): admission counts the wait since
+    queued_t: float = 0.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -751,6 +754,9 @@ class GraphServer:
         self.completions: List[Completion] = []
         self.rejected = 0
         self.update_log: List[dict] = []
+        #: [seconds queued, admissions] summed over every admission from
+        #: the queues: host floats, kept with telemetry off too
+        self._queue_wait = [0.0, 0]
 
     # -- request side --------------------------------------------------------
 
@@ -829,10 +835,10 @@ class GraphServer:
         if self.obs.health.enabled:
             self._submit_t[rid] = now
         self.obs.tracer.begin(rid, algo, int(source), tenant,
-                              self.graph_version)
+                              self.graph_version, t=now)
         self.queues[algo][tenant].append(
             Request(rid=rid, algo=algo, source=int(source), tenant=tenant,
-                    deadline_t=deadline_t))
+                    deadline_t=deadline_t, queued_t=now))
         return rid
 
     # -- SLO bookkeeping -----------------------------------------------------
@@ -995,9 +1001,10 @@ class GraphServer:
         for _ in range(k):
             if not pool.live():
                 break
-            pool.step()
-            if self.obs.enabled:
-                entry = pool.log_iter()
+            with obs.region("simdx.serve.step"):
+                pool.step()
+                entry = pool.log_iter() if self.obs.enabled else None
+            if entry is not None:
                 reg = self.obs.registry
                 reg.histogram(f"{pool.name}.union_fe",
                               default_count_buckets()).observe(
@@ -1109,32 +1116,36 @@ class GraphServer:
 
     def _admit_one(self, pool: AlgoPool, lane: int, req: Request,
                    degraded: bool) -> None:
-        rid = req.rid
-        resumed = False
-        if not degraded and rid in self._preempt_saved:
-            key = self._preempt_saved.pop(rid)
-            entry = self.cache.pop(key)
-            if entry is not None:
-                # resume the fixpoint from the parked partial state instead
-                # of restarting (preemption contract, DESIGN.md §13); a
-                # capacity-evicted entry falls back to a fresh admit
-                pool.admit_resume(lane, rid, {
-                    "planes": entry.extras["planes"],
-                    "it": entry.extras["it"],
-                    "trace": entry.extras["trace"],
-                })
-                resumed = True
-        if not resumed:
-            pool.admit(lane, rid, req.source)
-        self._inflight_sources[rid] = req.source
-        self._inflight_tenants[rid] = req.tenant
-        self._rec("resume" if resumed else "admit", rid=rid,
-                  pool=pool.name, lane=lane, algo=req.algo)
-        if degraded:
-            self._degraded_rids.add(rid)
-            self._count_slo("degraded")
-            self._rec("degrade", rid=rid, pool=pool.name)
-        self.obs.tracer.mark(rid, "admit")
+        with obs.region("simdx.serve.admit"):
+            now = time.monotonic()
+            self._queue_wait[0] += now - req.queued_t
+            self._queue_wait[1] += 1
+            rid = req.rid
+            resumed = False
+            if not degraded and rid in self._preempt_saved:
+                key = self._preempt_saved.pop(rid)
+                entry = self.cache.pop(key)
+                if entry is not None:
+                    # resume the fixpoint from the parked partial state instead
+                    # of restarting (preemption contract, DESIGN.md §13); a
+                    # capacity-evicted entry falls back to a fresh admit
+                    pool.admit_resume(lane, rid, {
+                        "planes": entry.extras["planes"],
+                        "it": entry.extras["it"],
+                        "trace": entry.extras["trace"],
+                    })
+                    resumed = True
+            if not resumed:
+                pool.admit(lane, rid, req.source)
+            self._inflight_sources[rid] = req.source
+            self._inflight_tenants[rid] = req.tenant
+            self._rec("resume" if resumed else "admit", rid=rid,
+                      pool=pool.name, lane=lane, algo=req.algo)
+            if degraded:
+                self._degraded_rids.add(rid)
+                self._count_slo("degraded")
+                self._rec("degrade", rid=rid, pool=pool.name)
+            self.obs.tracer.mark(rid, "admit", t=now)
 
     def _group_ewma(self, grp: List[AlgoPool]) -> Optional[float]:
         seen = [p.ewma_resident_s for p in grp
@@ -1231,7 +1242,7 @@ class GraphServer:
         self.obs.tracer.mark(rid, "preempt")
         dt = self._deadline_t.get(rid)
         req = Request(rid=rid, algo=name, source=source, tenant=tenant,
-                      deadline_t=dt)
+                      deadline_t=dt, queued_t=time.monotonic())
         if dt is not None and now >= dt and pol.drop_expired:
             self._drop_request(req)
             return
@@ -1248,51 +1259,52 @@ class GraphServer:
 
     def _harvest_pool(self, name: str, pool: AlgoPool,
                       degraded: bool = False) -> List[Completion]:
-        out = []
-        harvested = pool.harvest()
-        mode_rows = None
-        if harvested and self.obs.enabled:
-            # per-request per-iteration modes come from the existing
-            # mode-trace machinery: ONE matrix transfer per harvest that
-            # actually yields lanes (never per lane)
-            mode_rows = device_fetch(pool.mode_trace())
-        now = time.monotonic()
-        for lane, rid, result, iters, extras in harvested:
-            pool.observe_resident(now - pool.lane_admit_t[lane])
-            dt = self._deadline_t.pop(rid, None)
-            missed = dt is not None and now > dt
-            if missed:
-                self._count_slo("deadline_missed")
-            self._rec("harvest", rid=rid, pool=pool.name, lane=lane,
-                      iters=iters)
-            self._health_complete(rid, now, missed=missed)
-            was_preempted = rid in self._preempt_counts
-            self._preempt_counts.pop(rid, None)
-            self._degraded_rids.discard(rid)
-            comp = Completion(
-                rid=rid, algo=name, source=self._source_of(rid, name, result),
-                result=result, iterations=iters, from_cache=False,
-                graph_version=self.graph_version,
-                tenant=self._inflight_tenants.pop(rid, "default"),
-                deadline_missed=missed, degraded=degraded,
-                preempted=was_preempted,
-            )
-            if not degraded:
-                # degraded answers never cache-fill: the bit-exact key must
-                # keep serving full-tolerance results only
-                self.cache.put(
-                    make_key(self.graph_version, comp.algo, comp.source,
-                             pool.cache_params),
-                    CachedEntry(comp.result, extras) if extras
-                    else comp.result,
+        with obs.region("simdx.serve.harvest"):
+            out = []
+            harvested = pool.harvest()
+            mode_rows = None
+            if harvested and self.obs.enabled:
+                # per-request per-iteration modes come from the existing
+                # mode-trace machinery: ONE matrix transfer per harvest that
+                # actually yields lanes (never per lane)
+                mode_rows = device_fetch(pool.mode_trace())
+            now = time.monotonic()
+            for lane, rid, result, iters, extras in harvested:
+                pool.observe_resident(now - pool.lane_admit_t[lane])
+                dt = self._deadline_t.pop(rid, None)
+                missed = dt is not None and now > dt
+                if missed:
+                    self._count_slo("deadline_missed")
+                self._rec("harvest", rid=rid, pool=pool.name, lane=lane,
+                          iters=iters)
+                self._health_complete(rid, now, missed=missed)
+                was_preempted = rid in self._preempt_counts
+                self._preempt_counts.pop(rid, None)
+                self._degraded_rids.discard(rid)
+                comp = Completion(
+                    rid=rid, algo=name, source=self._source_of(rid, name, result),
+                    result=result, iterations=iters, from_cache=False,
+                    graph_version=self.graph_version,
+                    tenant=self._inflight_tenants.pop(rid, "default"),
+                    deadline_missed=missed, degraded=degraded,
+                    preempted=was_preempted,
                 )
-            if self.obs.enabled:
-                self._complete_span(
-                    name, pool, lane, rid, iters, mode_rows,
-                    slo=self._span_slo(dt, missed=missed, degraded=degraded,
-                                       preempted=was_preempted))
-            out.append(comp)
-        return out
+                if not degraded:
+                    # degraded answers never cache-fill: the bit-exact key must
+                    # keep serving full-tolerance results only
+                    self.cache.put(
+                        make_key(self.graph_version, comp.algo, comp.source,
+                                 pool.cache_params),
+                        CachedEntry(comp.result, extras) if extras
+                        else comp.result,
+                    )
+                if self.obs.enabled:
+                    self._complete_span(
+                        name, pool, lane, rid, iters, mode_rows,
+                        slo=self._span_slo(dt, missed=missed, degraded=degraded,
+                                           preempted=was_preempted))
+                out.append(comp)
+            return out
 
     def _complete_span(self, name: str, pool: AlgoPool, lane: int, rid: int,
                        iters: int, mode_rows,
@@ -1599,6 +1611,10 @@ class GraphServer:
         scattered counter unified behind a documented schema:
 
           completed / queued / rejected / inflight   request-side totals
+          queue          {wait_s, admitted}: seconds requests spent queued,
+                         from their latest enqueue to admission, summed over
+                         the `admitted` admissions from the queues (host
+                         floats, kept with telemetry off)
           cache          ResultCache.stats(): size, capacity, hits, misses,
                          hit_rate, evictions, invalidations
           graph_version  version served right now
@@ -1716,6 +1732,7 @@ class GraphServer:
             "queued": self._queued(),
             "rejected": self.rejected,
             "inflight": len(self._inflight_sources),
+            "queue": {"wait_s": self._queue_wait[0], "admitted": self._queue_wait[1]},
             "cache": self.cache.stats(),
             "graph_version": self.graph_version,
             "graph": {

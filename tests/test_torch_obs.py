@@ -112,7 +112,7 @@ def test_iters_from_trace_bounded_log_gaps():
 
 
 def test_package_surface_matches_reference():
-    assert set(obs.__all__) == set(jobs.__all__)
+    assert set(obs.__all__) == set(jobs.__all__) | {"region"}     # the port's profiler ranges
     assert obs.EVENT_KINDS == jobs.EVENT_KINDS
     assert obs.MODE_NAMES == jobs.MODE_NAMES
     assert obs.SLO_FIELDS == jobs.SLO_FIELDS and obs.TELE_FIELDS == jobs.TELE_FIELDS

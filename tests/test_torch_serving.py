@@ -90,8 +90,12 @@ def same_stats(sj, st):
     """Equal stats: every key, every count. The reference's `shard_delta` is
     its process-wide sharded counters (other test files move them); the
     port's are zero. Timed values (latency histograms, health quantiles) are
-    compared by key only."""
-    assert set(sj) == set(st)
+    compared by key only. The port has one key more, `queue` (its queue-wait
+    counter, host floats)."""
+    assert set(st) == set(sj) | {"queue"}
+    q = st["queue"]
+    engine = sum(p["engine_queries"] for p in st["pools"].values())
+    assert q["wait_s"] >= 0 and 0 <= q["admitted"] <= engine
     assert set(sj["shard_delta"]) == set(st["shard_delta"])
     assert st["shard_delta"] == {"full_reslice": 0, "short_circuit": 0}
     for k in sj:

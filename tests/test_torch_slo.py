@@ -383,6 +383,6 @@ def test_stats_slo_schema(graphs):
     assert slo["policy"]["cohort_burst"] == 2 and slo["cohort_affinity"] == {"t": [0]}
     assert st["pools"]["ppr_delta"]["cohorts"] == 2
     assert st["pools"]["ppr_delta@degraded"] == sj["pools"]["ppr_delta@degraded"]
-    assert set(st) == set(sj)
+    assert set(st) == set(sj) | {"queue"}       # the port's queue-wait counter
     assert torch.equal(t.pools["ppr_delta"].state.done,
                        torch.ones(2, dtype=torch.bool))
