@@ -67,10 +67,12 @@ Phases (any failure exits non-zero; nothing is caught):
                  0.19, seed 1, undirected): each kernel timed at the main
                  path's shapes (ell_combine per slice, all 12 op pairs
                  bit-equal there, and at copy/sum beside torch.sparse.mm of
-                 the slices' 0/1 CSR matrices; segment_reduce at the push
-                 Combine's shape
-                 and at each slice's pull-merge shape, each bit-equal to
-                 segment_reduce_ordered), then bfs, sssp, wcc, pagerank and
+                 the slices' 0/1 CSR matrices; segment_reduce at the
+                 full-buffer push Combine's shape, at each slice's
+                 pull-merge shape and, after the warm-up, at each
+                 power-of-two bucket that bfs and sssp's pushes hand it,
+                 each bit-equal to segment_reduce_ordered and bounded),
+                 then bfs, sssp, wcc, pagerank and
                  kcore(16) through `engine.run` with the kernel pull,
                  counted (segment_reduce's launches split into one a push and
                  one a slice a pull); each is bit-equal to the torch pull
@@ -665,8 +667,9 @@ def segment_cases(rng, sr) -> list:
     """(E, D, ids, num) cases for segment_reduce: segment lengths on each side
     of every tier limit (1, THREAD_SEG and one more, 32, 33, LONG_SEG and one
     more), long ones first and last, gaps (empty segments), ids out of range
-    at both ends; num far above E; every id out of range; E = 0; and random
-    draws."""
+    at both ends; num far above E; a push bucket (a few thousand sorted ids
+    over millions of segments, then a tail of sentinels at num); every id
+    out of range; E = 0; and random draws."""
     edges = [1, sr.THREAD_SEG, sr.THREAD_SEG + 1, 32, 33, sr.LONG_SEG, sr.LONG_SEG + 1]
     cases = []
     for d in (1, 3, 64):
@@ -678,6 +681,9 @@ def segment_cases(rng, sr) -> list:
         cases.append((d, ids.astype(np.int32), num))
     sparse = np.sort(rng.choice(1_000_000, 1000, replace=False))
     cases.append((1, np.repeat(sparse, rng.integers(1, 12, 1000)).astype(np.int32), 1_000_003))
+    cases.append((1, np.concatenate([np.sort(rng.integers(0, 4_000_000, 1500)),
+                                     np.full(4096 - 1500, 4_000_000)]).astype(np.int32),
+                  4_000_000))
     cases.append((3, np.array([-3, -2, 9, 9, 12], np.int32), 9))       # all out of range
     cases.append((1, np.full(4000, 20, np.int32), 10))                 # all past num
     cases.append((1, np.zeros(0, np.int32), 7))                        # E = 0
@@ -719,6 +725,63 @@ def check_segment(sr, vals, sid, num, what: str) -> float:
             elif not bit_equal(a, b):
                 raise AssertionError(f"segment_reduce {comb} {what} differs from plain")
     return worst
+
+
+def push_buckets(E, sr, progs, g, pack, cfg) -> dict:
+    """{E: (vals, ids)}: the first push Combine input of each size that
+    `engine.run` hands segment_reduce in `progs`' runs (num = n; a pull's
+    merges take n + 1)."""
+    n, seen = g.n_nodes, {}
+    kernel = sr.segment_reduce_cuda
+
+    def record(vals, ids, num, combine="sum", fill=None):
+        if num == n and ids.shape[0] not in seen:
+            seen[ids.shape[0]] = (vals.clone(), ids.clone())
+        return kernel(vals, ids, num, combine, fill)
+
+    sr.segment_reduce_cuda = record
+    try:
+        for p in progs:
+            E.run(p, g, pack, cfg)
+    finally:
+        sr.segment_reduce_cuda = kernel
+    return seen
+
+
+def bucket_phase(E, sr, progs, g, pack, cfg) -> list:
+    """segment_reduce at the push Combine's shapes of the main path: each
+    power-of-two bucket of a frontier's edge volume that the runs of `progs`
+    hand it, sorted destination ids with a tail of sentinels at num = n.
+    Each is the bucket of its volume (the ids below n), bit-equal to
+    segment_reduce_ordered and held to the plain version (`check_segment`),
+    and timed against its bound."""
+    n, m = g.n_nodes, g.n_edges
+    rows = []
+    for e, (vals, ids) in sorted(push_buckets(E, sr, progs, g, pack, cfg).items()):
+        fe = int((ids < n).sum())
+        if e != E._bucket_lanes(fe, m) or not bool((ids[fe:] == n).all()):
+            raise AssertionError(f"a push of volume {fe} reached segment_reduce with {e} "
+                                 f"lanes, not its bucket {E._bucket_lanes(fe, m)} ending "
+                                 "in sentinels")
+        err_ = check_segment(sr, vals, ids, n, f"at the push bucket E={e}")
+        ids64 = ids.long()
+        lib_out = torch.zeros(n + 1, device=vals.device)
+        bnd = bound_ms(e * 8 + n * 4, e)
+        rows.append(dict(
+            lanes=e, volume=fe, max_abs_err=err_,
+            ms=graph_ms(lambda: sr.segment_reduce_cuda(vals, ids, n, "min")),
+            sum_ms=graph_ms(lambda: sr.segment_reduce_cuda(vals, ids, n, "sum")),
+            plain_ms=cuda_ms(lambda: sr.segment_reduce_plain(vals, ids, n, "min"), 5),
+            bound_ms=bnd[0],
+            library_min_ms=graph_ms(lambda: lib_out.scatter_reduce_(0, ids64, vals, "amin"))))
+        r = rows[-1]
+        log(f"[4 main] segment_reduce push bucket E={e} (volume {fe}) num={n}: card min "
+            f"{r['ms']:.4f} ms, sum {r['sum_ms']:.4f} (CUDA graphs), bound "
+            f"{r['bound_ms']:.4f}, plain {r['plain_ms']:.4f}, scatter_reduce_ amin "
+            f"{r['library_min_ms']:.4f}; bit-equal to segment_reduce_ordered")
+    if not rows:
+        raise AssertionError("no push reached segment_reduce")
+    return rows
 
 
 def sweep_segment(dev, rng, sr) -> float:
@@ -5502,7 +5565,9 @@ def main() -> int:
         f"host enqueue, torch.nonzero {r['library_loop_ms']:.4f} ms a call with "
         f"{r['library_host_us']:.1f} us")
 
-    # segment_reduce: the push Combine's shape (E = m, num = n) ...
+    # segment_reduce: the full-buffer push Combine's shape (E = m, num = n;
+    # the baselines', and a bucket capped at edge_cap), the main path's
+    # buckets after the warm-up below ...
     sid = torch.sort(g.out.col_idx).values
     sv = torch.rand(m, device=dev)
     s_err = check_segment(sr, sv, sid, n, "at the push shape")
@@ -5511,7 +5576,7 @@ def main() -> int:
     bnd = bound_ms(m * 8 + n * 4, m)
     report["segment_reduce"] = dict(
         replaces="src/repro/kernels/segment_reduce.py:20",
-        shape=f"push Combine: E={m} sorted ids, num={n}, sum",
+        shape=f"full-buffer push Combine: E={m} sorted ids, num={n}, sum",
         max_abs_err=max(err["segment_reduce"], s_err),
         ms=cuda_ms(lambda: sr.segment_reduce_cuda(sv, sid, n, "sum")),
         plain_ms=cuda_ms(lambda: sr.segment_reduce_plain(sv, sid, n, "sum"), 5),
@@ -5554,6 +5619,10 @@ def main() -> int:
     for _, p in progs:                       # warm-up (allocator, first launches)
         E.run(p, g, pack, cfg_k)
     torch.cuda.synchronize()
+    buckets = bucket_phase(E, sr, [A.bfs(0), A.sssp(0)], g, pack, cfg_k)
+    report["segment_reduce"].update(push_buckets=buckets, max_abs_err=max(
+        report["segment_reduce"]["max_abs_err"], *(b["max_abs_err"] for b in buckets)))
+    torch.cuda.empty_cache()
 
     ops.reset_launches()
     results = {}

@@ -271,8 +271,11 @@ def pagerank_delta(damping: float = 0.85, tol: float = 1e-5, max_iters: int = 12
         return {"rank": rank, "resid": resid, "send": send, "deg": m["deg"]}
 
     def active(new: Meta, old: Meta, it):
-        del it
-        return torch.abs(new["resid"]) > _tol_abs(new["resid"])
+        del it, old
+        # |resid| > tol/n, read from `send` (nonzero exactly there, as apply
+        # and init set it): `_tol_abs` of a push's per-lane gather would
+        # take n from the edge buffer's length
+        return new["send"] != 0
 
     return ACCProgram(
         name="pagerank_delta", combiner=SUM_AGG, init=init, compute=compute,

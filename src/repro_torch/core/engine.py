@@ -3,25 +3,29 @@
 Port of `repro.core.engine` (paper Sec. 4-5):
 
   * push step  = frontier-driven edge expansion (balanced by a searchsorted
-    split of a static `edge_cap` buffer) + Compute + segment Combine (the
-    deterministic `segment_reduce` kernel on the card) + online filter.
+    split of an edge buffer sized to the frontier's edge volume) + Compute
+    + segment Combine (the deterministic `segment_reduce` kernel on the
+    card) + online filter.
   * pull step  = a pass over the degree-bucketed ELL slices of the in-CSR +
     Compute + Combine (the `ell_combine` kernel with `pull_impl='kernel'`,
     the default) + ballot filter (the `frontier_pack` kernel).
   * JIT controller = `_policy`: pull on overflow or when the frontier's
     edge volume passes `alpha * |E|` or the edge budget, push otherwise.
 
-Every buffer has a static shape (`frontier_cap`, `edge_cap`), so a later
-slice can capture iterations in a CUDA graph. The three fusion modes keep
-their names, results and `mode_trace`, but in this port all three are loops
-driven by the host: each iteration reads one small packed `(done, mode)`
-tensor from the device — the only host sync per iteration — and `mode_trace`
-and `fe_trace` stay on the device until the end. `'all'` dispatches push or
-pull from one loop, `'pushpull'` runs specialized inner loops per direction,
-`'none'` re-decides every step. The device-resident fused loop (the paper's
-persistent kernel with its global barrier, or CUDA-graph chunks with a
-device-side `done` flag) is future work. Under a `torch.profiler` each
-push, pull and read is a `simdx.engine.*` range (`obs.region`).
+Every buffer has a static shape: `frontier_cap`, or for the push's edge
+buffer a bucket, the power of two at or above the frontier's edge volume
+(at least `_MIN_LANES`, at most `edge_cap`), so the shapes are few and a
+later slice can capture iterations in a CUDA graph. The three fusion modes
+keep their names, results and `mode_trace`, but in this port all three are
+loops driven by the host: each iteration reads one small packed `(done,
+mode, fe_next)` tensor from the device — the only host sync per iteration —
+and `mode_trace` and `fe_trace` stay on the device until the end. `'all'`
+dispatches push or pull from one loop, `'pushpull'` runs specialized inner
+loops per direction, `'none'` re-decides every step. The device-resident
+fused loop (the paper's persistent kernel with its global barrier, or
+CUDA-graph chunks with a device-side `done` flag) is future work. Under a
+`torch.profiler` each push, pull and read is a `simdx.engine.*` range
+(`obs.region`).
 """
 
 from __future__ import annotations
@@ -39,6 +43,11 @@ from repro_torch.graph.packing import EllPack
 from repro_torch.kernels import ops as kops
 
 PUSH, PULL = 0, 1
+
+#: the smallest push edge buffer: pushes expand into power-of-two buckets
+#: from here up to `edge_cap`, so they share at most ~log2(edge_cap / 4096)
+#: shapes
+_MIN_LANES = 4096
 
 
 @dataclasses.dataclass(frozen=True)
@@ -160,12 +169,23 @@ def _sparse_combine_apply(program, comb, m, upd, dst, n):
     return out
 
 
+def _bucket_lanes(fe: int, edge_cap: int) -> int:
+    """The push's edge buffer for a frontier of edge volume `fe`: the power
+    of two at or above `fe`, at least `_MIN_LANES`, at most `edge_cap`.
+    Lanes [0, fe) keep their index in any bucket and the rest are sentinels,
+    so every bucket that holds the volume gives the full buffer's result."""
+    return min(edge_cap, max(_MIN_LANES, 1 << max(fe - 1, 0).bit_length()))
+
+
 def _push_step(program: ACCProgram, csr: CSR, cfg: EngineConfig,
-               st: EngineState, delta: Optional[EdgeDelta] = None) -> EngineState:
+               st: EngineState, delta: Optional[EdgeDelta] = None,
+               lanes: Optional[int] = None) -> EngineState:
+    """One push over `lanes` edge lanes (default `cfg.edge_cap`); the
+    streaming `delta`'s lanes follow them."""
     n = csr.n_nodes
     comb = program.combiner
-    src, dst, w, valid_e, _total = expand_frontier(csr, st.frontier, st.count,
-                                                   cfg.edge_cap)
+    src, dst, w, valid_e, _total = expand_frontier(
+        csr, st.frontier, st.count, cfg.edge_cap if lanes is None else lanes)
     if delta is not None:
         # streaming insertion overlay: COO lanes appended unconditionally
         src = torch.cat([src, delta.src])
@@ -350,10 +370,11 @@ def make_kernel_pull(program: ACCProgram) -> Callable:
 
 
 def _flags(st: EngineState):
-    """The one host read per iteration: (done, mode)."""
+    """The one host read per iteration: (done, mode, fe_next)."""
     with obs.region("simdx.engine.read"):
-        done, mode = obs.host_flags(torch.stack([st.done.to(torch.int32), st.mode]))
-    return bool(done), mode
+        done, mode, fe = obs.host_flags(
+            torch.stack([st.done.to(torch.int32), st.mode, st.fe_next]))
+    return bool(done), mode, fe
 
 
 def run(program: ACCProgram, g: Graph, pack: EllPack, cfg: EngineConfig,
@@ -374,31 +395,34 @@ def run(program: ACCProgram, g: Graph, pack: EllPack, cfg: EngineConfig,
         raise ValueError(cfg.fusion)
     st = init_state(program, g, cfg, delta=delta, **init_kw)
 
-    def push(s):
+    def push(s, fe):
+        # `fe` (`fe_next`) is the `total` the push's `expand_frontier` finds
+        # (the same out-CSR, frontier and count), so its bucket holds every edge
         with obs.region("simdx.engine.push"):
             return _policy(program, cfg, g.n_edges,
-                           _push_step(program, g.out, cfg, s, delta))
+                           _push_step(program, g.out, cfg, s, delta,
+                                      _bucket_lanes(fe, cfg.edge_cap)))
 
     def pull(s):
         with obs.region("simdx.engine.pull"):
             return _policy(program, cfg, g.n_edges,
                            _pull_step(program, pack, cfg, s, g.out, pull_slice_fn))
 
-    done, mode = _flags(st)
+    done, mode, fe = _flags(st)
     if cfg.fusion == "pushpull":
         # specialized inner loops, one per direction
         while not done:
             while not done and mode == PUSH:
-                st = push(st)
-                done, mode = _flags(st)
+                st = push(st, fe)
+                done, mode, fe = _flags(st)
             while not done and mode == PULL:
                 st = pull(st)
-                done, mode = _flags(st)
+                done, mode, fe = _flags(st)
     else:
         # 'all': one loop holding both steps; 'none': one step per dispatch
         while not done:
-            st = push(st) if mode == PUSH else pull(st)
-            done, mode = _flags(st)
+            st = push(st, fe) if mode == PUSH else pull(st)
+            done, mode, fe = _flags(st)
 
     stats = {
         "iterations": st.it,

@@ -205,6 +205,37 @@ def test_kernel_pull_bit_equal_to_torch_pull(cuda, name):
         assert torch.equal(sk[k], st[k]), k
 
 
+@pytest.mark.parametrize("name", ["bfs", "sssp", "ppr_delta", "pagerank_delta", "kcore"])
+def test_bucketed_push_bit_equal_to_full_buffer(cuda, monkeypatch, name):
+    """A push over a power-of-two bucket at or above the frontier's edge
+    volume equals the push over all `edge_cap` lanes, bit for bit, with the
+    sums folded by `segment_reduce`; a floor of 1 gives buckets of every
+    size."""
+    g = G.rmat(12, 16, seed=1, device=cuda)
+    pack = pack_ell(g.inc)
+    prog = A.ALL[name](0) if name in ("bfs", "sssp", "ppr_delta") else A.ALL[name]()
+    cfg = E.EngineConfig(frontier_cap=g.n_nodes, edge_cap=g.n_edges)
+    monkeypatch.setattr(E, "_MIN_LANES", 1)
+    lanes = []
+    expand = E.expand_frontier
+    monkeypatch.setattr(E, "expand_frontier", lambda csr, ids, count, cap:
+                        lanes.append(cap) or expand(csr, ids, count, cap))
+    mb, sb = E.run(prog, g, pack, cfg)
+    monkeypatch.setattr(E, "expand_frontier", expand)
+    step = E._push_step
+    monkeypatch.setattr(E, "_push_step", lambda program, csr, c, st, delta=None, lanes=None:
+                        step(program, csr, c, st, delta))
+    mf, sf = E.run(prog, g, pack, cfg)
+    assert int(sb["push_iters"]) > 0
+    assert len(lanes) == int(sb["push_iters"])
+    assert sum(lanes) < int(sb["push_iters"]) * cfg.edge_cap
+    for k in mf:
+        assert torch.equal(_bits(mb[k]), _bits(mf[k])), k
+    for k in ("iterations", "push_iters", "pull_iters", "switches", "mode_trace",
+              "fe_trace", "final_count"):
+        assert torch.equal(sb[k], sf[k]), k
+
+
 @pytest.mark.parametrize("r,w,n", [(8, 4, 50), (37, 32, 100), (29, 256, 700), (9, 3, 40)])
 def test_overlay_bit_equal_to_plain_and_neutralized(cuda, r, w, n):
     rng = np.random.default_rng(r + w)

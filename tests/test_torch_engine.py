@@ -20,7 +20,7 @@ import torch
 from repro.core import algorithms as JA
 from repro.core import engine as JE
 from repro.graph import csr as jcsr
-from repro_torch import interop
+from repro_torch import interop, obs
 from repro_torch.core import algorithms as TA
 from repro_torch.core import engine as TE
 from repro_torch.graph import csr as tcsr
@@ -193,3 +193,132 @@ def test_kernel_pull_needs_a_declared_op(graphs):
     TE.run(prog, tg, tp, dataclasses.replace(cfg, pull_impl="torch"))
     with pytest.raises(ValueError):
         TE.run(TA.bfs(0), tg, tp, dataclasses.replace(cfg, pull_impl="pallas"))
+
+
+# ---------------------------------------------------------------------------
+# the push's edge buffer sized to the frontier's edge volume
+# ---------------------------------------------------------------------------
+
+STATS = ("iterations", "push_iters", "pull_iters", "switches", "mode_trace",
+         "fe_trace", "final_count")
+
+
+@pytest.mark.parametrize("fe,edge_cap,want", [
+    (0, 1 << 20, TE._MIN_LANES), (1, 1 << 20, TE._MIN_LANES),
+    (TE._MIN_LANES, 1 << 20, TE._MIN_LANES),
+    (TE._MIN_LANES + 1, 1 << 20, 2 * TE._MIN_LANES),
+    ((1 << 17) - 1, 1 << 20, 1 << 17), (1 << 17, 1 << 20, 1 << 17),
+    ((1 << 17) + 1, 1 << 20, 1 << 18),
+    (5000, 6000, 6000), (6000, 6000, 6000), (100, 512, 512),
+    (7000, 5000, 5000),      # past edge_cap: the full buffer, as before
+])
+def test_bucket_lanes(fe, edge_cap, want):
+    lanes = TE._bucket_lanes(fe, edge_cap)
+    assert lanes == want
+    assert lanes == edge_cap or (lanes >= max(fe, TE._MIN_LANES)
+                                 and lanes & (lanes - 1) == 0)
+
+
+def _full_buffer(mp):
+    """Every push of `run` reaches `_push_step` with lanes=None: all
+    `edge_cap` lanes, the buffer before bucketing."""
+    step = TE._push_step
+    mp.setattr(TE, "_push_step", lambda program, csr, cfg, st, delta=None, lanes=None:
+               step(program, csr, cfg, st, delta))
+
+
+def _assert_bucketed_equals_full(monkeypatch, prog, tg, tp, cfg, **kw):
+    """`run` with bucketed pushes is bit-equal to `run` with full buffers in
+    its metadata and in every control stat; returns the bucketed stats."""
+    bm, bs = TE.run(prog, tg, tp, cfg, **kw)
+    with monkeypatch.context() as mp:
+        _full_buffer(mp)
+        fm, fs = TE.run(prog, tg, tp, cfg, **kw)
+    assert set(bm) == set(fm)
+    for k in fm:
+        assert torch.equal(bm[k].view(torch.int32), fm[k].view(torch.int32)), k
+    for k in STATS:
+        assert torch.equal(bs[k], fs[k]), k
+    return bs
+
+
+@pytest.mark.parametrize("min_lanes", [TE._MIN_LANES, 1])
+@pytest.mark.parametrize("fusion", FUSIONS)
+@pytest.mark.parametrize("name", sorted(JA.ALL))
+def test_bucketed_push_equals_full_buffer(graphs, monkeypatch, name, fusion, min_lanes):
+    """A floor of 1 gives the 512-vertex graph buckets of every size."""
+    monkeypatch.setattr(TE, "_MIN_LANES", min_lanes)
+    g, _, tg, tp = graphs["rmat"]
+    _, t, _, tkw = make_programs(name, g.n_nodes)
+    cfg = TE.EngineConfig(frontier_cap=g.n_nodes, edge_cap=g.n_edges, fusion=fusion)
+    _assert_bucketed_equals_full(monkeypatch, t, tg, tp, cfg, **tkw)
+
+
+@pytest.mark.parametrize("min_lanes", [TE._MIN_LANES, 1])
+@pytest.mark.parametrize("fusion", FUSIONS)
+@pytest.mark.parametrize("case", ["small_caps", "small_caps_sparse", "delta"])
+@pytest.mark.parametrize("name", ["bfs", "sssp"])
+def test_bucketed_push_equals_full_buffer_small_caps_and_delta(
+        graphs, monkeypatch, name, case, fusion, min_lanes):
+    monkeypatch.setattr(TE, "_MIN_LANES", min_lanes)
+    if case == "delta":
+        g, _, tg, tp = graphs["road"]
+        n = g.n_nodes
+        rng = np.random.default_rng(11)
+        src, dst = rng.integers(0, n, 6), rng.integers(0, n, 6)
+        w = rng.integers(1, 5, 6).astype(np.float32)
+        kw = {"delta": tcsr.delta_from_edges(src, dst, w, n, 8, device="cpu")}
+        cfg = TE.EngineConfig(frontier_cap=n, edge_cap=g.n_edges, fusion=fusion)
+    else:
+        g, _, tg, tp = graphs["rmat"]
+        kw = {}
+        cfg = TE.EngineConfig(frontier_cap=64, edge_cap=512, fusion=fusion,
+                              sparse_combine=case == "small_caps_sparse")
+    _assert_bucketed_equals_full(monkeypatch, TA.ALL[name](3), tg, tp, cfg, **kw)
+
+
+@pytest.mark.parametrize("fusion", FUSIONS)
+def test_one_host_read_an_iteration(graphs, monkeypatch, fusion):
+    """The edge volume rides in the packed control-flow read: `run` reads
+    the device once before the first iteration and once after each."""
+    calls = []
+    read = obs.host_flags
+    monkeypatch.setattr(obs, "host_flags", lambda x: calls.append(1) or read(x))
+    g, _, tg, tp = graphs["rmat"]
+    cfg = TE.EngineConfig(frontier_cap=g.n_nodes, edge_cap=g.n_edges, fusion=fusion)
+    for prog in (TA.bfs(0), TA.sssp(0), TA.pagerank()):
+        calls.clear()
+        _, st = TE.run(prog, tg, tp, cfg)
+        assert len(calls) == int(st["iterations"]) + 1, prog.name
+
+
+@pytest.mark.parametrize("min_lanes", [TE._MIN_LANES, 1])
+@pytest.mark.parametrize("name", ["bfs", "sssp", "wcc", "kcore"])
+def test_each_push_expands_its_frontiers_bucket(graphs, monkeypatch, name, min_lanes):
+    """Each push's `expand_frontier` gets the bucket of the edge volume it
+    finds, and that volume is the `fe_trace` entry read with the flags."""
+    monkeypatch.setattr(TE, "_MIN_LANES", min_lanes)
+    seen = []
+    expand = TE.expand_frontier
+
+    def record(csr, ids, count, edge_cap):
+        out = expand(csr, ids, count, edge_cap)
+        seen.append((edge_cap, int(out[-1])))
+        return out
+
+    monkeypatch.setattr(TE, "expand_frontier", record)
+    g, _, tg, tp = graphs["rmat"]
+    cfg = TE.EngineConfig(frontier_cap=g.n_nodes, edge_cap=g.n_edges)
+    prog = TA.ALL[name](3) if name in ("bfs", "sssp") else TA.ALL[name]()
+    _, st = TE.run(prog, tg, tp, cfg)
+    it = int(st["iterations"])
+    assert it <= cfg.trace_len
+    push = st["mode_trace"][:it] == TE.PUSH
+    assert len(seen) == int(st["push_iters"]) > 0
+    assert [total for _, total in seen] == st["fe_trace"][:it][push].tolist()
+    for lanes, total in seen:
+        assert lanes == TE._bucket_lanes(total, cfg.edge_cap) >= total
+    expanded = sum(lanes for lanes, _ in seen)
+    assert expanded <= int(st["push_iters"]) * cfg.edge_cap
+    if min_lanes == 1:
+        assert expanded < int(st["push_iters"]) * cfg.edge_cap
